@@ -6,15 +6,27 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
-2. build: compiles the four CUDA kernels from kernels/csrc with nvcc;
+2. build: compiles the six CUDA kernels from kernels/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and one ragged shape, with warm timings;
+   its path's shapes and at ragged shapes, with warm timings, its bound
+   (the least time the card could take: bytes over the memory rate or
+   operations over the float32 rate, whichever is larger) and, where one
+   PyTorch call computes the same function, that call's time; K5 and K6
+   also against K3's output on the same operands;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, with output checks, per-kernel launch counts, and a
    bit-identical second run;
 5. card against CPU: the same pipeline and weights on a 720 x 1280 image
    on the card and on the CPU (plain path), end to end, and the matting
-   and quantize stages from the same CNN mask on both.
+   and quantize stages from the same CNN mask on both;
+6. matvec variants: bench/micro_matvec.run at 4 x 576 x 1024, the path
+   that launches K5 and K6: ms per matvec of the plain formulation, K3,
+   K5 and K6 over 50 fed-back matvecs, and each one's drift;
+7. compat path on a seeded 1536 x 2048 frame: rembg_remove_bgr_to_rgba
+   with the full U^2-Net, refine_alpha_portrait from the CNN's alpha and
+   from a synthetic soft-edged alpha with strokes (the float32 solve and
+   the float64 polish must answer, on the card), the full-resolution
+   refine, and the synthetic case at 384 x 512 on the card and the CPU.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -30,30 +42,72 @@ import time
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
+from image_segmenter_tpu_torch.compat import matting_refine as REFINE
+from image_segmenter_tpu_torch.compat import rembg_infer as REMBG
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels import histogram as KH
+from image_segmenter_tpu_torch.kernels import matting as K6
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
+from image_segmenter_tpu_torch.solvers import matting as MAT
 from image_segmenter_tpu_torch.utils.backend import strict_f32
 
 BATCH, H4K, W4K = 4, 2160, 3840
 MH, MW = 576, 1024          # matting size of a 2160 x 3840 frame
 RAGGED = (37, 53)
+MATVEC_SHAPES = [(BATCH, MH, MW), (2, *RAGGED), (1, 33, 130)]
 CARD_VS_CPU = (1, 720, 1280)  # over matting_dim: the AREA shrink path runs
+COMPAT_HW = (1536, 2048)      # the compat path's frame (shrunk to 768 x 1024)
+COMPAT_SMALL_HW = (384, 512)  # card against CPU
 REPS = 10
+INNER = 50                    # fed-back matvecs in the variant bench
 
-KERNELS = {  # name -> (module, source, TPU kernel's pallas_call)
-    "histogram": (KH, "image_segmenter_tpu_torch/kernels/csrc/histogram.cu",
-                  "image_segmenter_tpu/kernels/pallas_histogram.py:117"),
-    "precompute": (KP, "image_segmenter_tpu_torch/kernels/csrc/precompute.cu",
-                   "image_segmenter_tpu/kernels/pallas_precompute.py:206"),
-    "matvec": (KMV, "image_segmenter_tpu_torch/kernels/csrc/matvec.cu",
-               "image_segmenter_tpu/kernels/pallas_matvec.py:271"),
-    "quantize": (KQ, "image_segmenter_tpu_torch/kernels/csrc/quantize.cu",
-                 "image_segmenter_tpu/kernels/pallas_quantize.py:112"),
+# Published peaks of one H100 SXM: device memory 3.35 TB/s; float32
+# outside the tensor cores 67 TFLOP/s (int32 adds are counted at that rate)
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+
+_CSRC = "image_segmenter_tpu_torch/kernels/csrc/"
+_TPU = "image_segmenter_tpu/kernels/"
+KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call)
+    "histogram": (KH, "LAUNCHES", _CSRC + "histogram.cu",
+                  _TPU + "pallas_histogram.py:117"),
+    "precompute": (KP, "LAUNCHES", _CSRC + "precompute.cu",
+                   _TPU + "pallas_precompute.py:206"),
+    "matvec": (KMV, "LAUNCHES", _CSRC + "matvec.cu",
+               _TPU + "pallas_matvec.py:271"),
+    "quantize": (KQ, "LAUNCHES", _CSRC + "quantize.cu",
+                 _TPU + "pallas_quantize.py:112"),
+    "matvec_stack": (KMV, "STACK_LAUNCHES", _CSRC + "matvec_stack.cu",
+                     _TPU + "pallas_matvec.py:225"),
+    "matvec_recompute": (K6, "LAUNCHES", _CSRC + "matvec_recompute.cu",
+                         _TPU + "pallas_matting.py:171"),
 }
+MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
+VARIANT_PATH = ("matvec_stack", "matvec_recompute")
+
+
+def zero_counts() -> None:
+    for mod, attr, _, _ in KERNELS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr, _, _) in KERNELS.items()}
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations
+    at the float32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / F32_OPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def fail(msg: str):
@@ -122,9 +176,25 @@ def check_histogram(label: str, dev) -> dict:
         err = max(err, float((got - ref).abs().max()))
     ms = median_ms(lambda: KH.hist256(x))
     plain_ms = median_ms(lambda: KH.hist256_plain(x))
+
+    # the one PyTorch call that computes the same function: bincount on
+    # values offset by 256 per row (the conversion it needs is timed too)
+    offs = (torch.arange(x.shape[0], device=dev) * 256)[:, None]
+
+    def library():
+        return torch.bincount((x.to(torch.int64) + offs).flatten(),
+                              minlength=256 * x.shape[0]).reshape(-1, 256)
+
+    if not torch.equal(library().to(ref.dtype), KH.hist256_plain(x)):
+        fail("histogram: the bincount yardstick differs from plain")
+    library_ms = median_ms(library)
+    # x read once, (B, 256) int32 written; one increment per element
+    bd = bound(x.numel() + x.shape[0] * 256 * 4, x.numel())
     print(f"[kernels] histogram {tuple(x.shape)} u8: exact; kernel {ms:.4f} ms,"
-          f" plain {plain_ms:.4f} ms ({label})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f" plain {plain_ms:.4f} ms, bincount {library_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({label})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": library_ms}
 
 
 def _precompute_err(got, ref) -> float:
@@ -149,22 +219,48 @@ def check_precompute(label: str, dev) -> dict:
             main_img = img
     ms = median_ms(lambda: KP.precompute_planes(main_img, 1e-7))
     plain_ms = median_ms(lambda: KP.precompute_planes_plain(main_img, 1e-7))
+    # 3 image planes read, 12 planes written. Operations per pixel: the
+    # count and mean boxes and their division (19), pass A (9 shifts x 16),
+    # pass B (9 x 16), pass C (9 x 15), the diag member sum (9 x 23), the
+    # pivots, inverse entries and flag (about 45): about 690.
+    px = BATCH * MH * MW
+    bd = bound(15 * px * 4, 690 * px)
     print(f"[kernels] precompute (4, 3, {MH}, {MW}) f32: within 1e-4, "
           f"max|diff| {err_main:.3g}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({label})")
-    return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({label})")
+    return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None}
+
+
+# Operations per pixel of one L @ p: the box of p and its division (5),
+# the covariance (9 shifts x 3 channels x 3), the division and the packed
+# solve (20), b (6), four member boxes (16), the output (8): about 135.
+# K6 adds the count, three means and pbar rebuilt from 9 shifts each and
+# takes its boxes in 9 adds instead of 4: about 215.
+MATVEC_OPS, RECOMPUTE_OPS = 135, 215
+
+
+def _matvec_operands(g, dev, b, h, w):
+    img = torch.rand((b, 3, h, w), generator=g, device=dev)
+    planes = KP.precompute_planes(img, 1e-7)
+    p = torch.randn((b, h, w), generator=g, device=dev)
+    return img, planes, p
+
+
+def _rel_err(got, ref, scale=None) -> float:
+    scale = ref.abs().max() if scale is None else scale
+    return float((got - ref).abs().max() / (scale + 1e-9))
 
 
 def check_matvec(label: str, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     err_main = None
-    for b, h, w in [(BATCH, MH, MW), (2, *RAGGED), (1, 33, 130)]:
-        img = torch.rand((b, 3, h, w), generator=g, device=dev)
-        planes = KP.precompute_planes(img, 1e-7)
-        p = torch.randn((b, h, w), generator=g, device=dev)
+    for b, h, w in MATVEC_SHAPES:
+        img, planes, p = _matvec_operands(g, dev, b, h, w)
         got = KMV.matvec_planes(planes, img, p)
         ref = KMV.matvec_planes_plain(planes, img, p)
-        e = float((got - ref).abs().max() / (ref.abs().max() + 1e-9))
+        e = _rel_err(got, ref)
         if not e < 1e-5:
             fail(f"matvec {(b, h, w)}: max|diff|/max|ref| {e} >= 1e-5")
         if err_main is None:
@@ -172,10 +268,95 @@ def check_matvec(label: str, dev) -> dict:
             args = (planes, img, p)
     ms = median_ms(lambda: KMV.matvec_planes(*args))
     plain_ms = median_ms(lambda: KMV.matvec_planes_plain(*args))
+    # 10 of K2's planes, 3 image planes and p read, one plane written
+    px = BATCH * MH * MW
+    bd = bound(15 * px * 4, MATVEC_OPS * px)
     print(f"[kernels] matvec (4, {MH}, {MW}) f32: within 1e-5 of max|ref|, "
           f"max|diff| {err_main:.3g}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({label})")
-    return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({label})")
+    return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None}
+
+
+def check_matvec_stack(label: str, dev) -> dict:
+    """K5 against its plain version and against K3 on the same operands."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    err_main = None
+    for b, h, w in MATVEC_SHAPES:
+        img, planes, p = _matvec_operands(g, dev, b, h, w)
+        stack = KMV.build_matvec_stack_planes(img, planes)
+        if not torch.equal(stack, KMV.build_matvec_stack(
+                img, planes[:, 7], planes[:, 8:11], planes[:, 0:6])):
+            fail(f"matvec_stack {(b, h, w)}: the two stack builders differ")
+        got = KMV.matvec_stack(stack, p)
+        ref = KMV.matvec_stack_plain(stack, p)
+        k3 = KMV.matvec_planes(planes, img, p)
+        e, e3 = _rel_err(got, ref), _rel_err(got, k3)
+        if not (e < 1e-5 and e3 < 1e-5):
+            fail(f"matvec_stack {(b, h, w)}: max|diff|/max|ref| {e} against "
+                 f"plain, {e3} against K3 (bound 1e-5)")
+        if err_main is None:
+            err_main = float((got - ref).abs().max())
+            same_bits = torch.equal(got, k3)
+            args = (stack, p)
+    ms = median_ms(lambda: KMV.matvec_stack(*args))
+    plain_ms = median_ms(lambda: KMV.matvec_stack_plain(*args))
+    # the least the function must move: the 13 planes at the image and
+    # its halo of 2 and p read, one plane written. The stack's padding to
+    # rows of 32 + 8 and columns of 128 is layout, never needed, so it is
+    # left out of the bound
+    px = BATCH * MH * MW
+    halo_px = BATCH * (MH + 4) * (MW + 4)
+    bd = bound((13 * halo_px + 2 * px) * 4, MATVEC_OPS * px)
+    print(f"[kernels] matvec_stack (4, 13, {args[0].shape[2]}, "
+          f"{args[0].shape[3]}) f32: within 1e-5 of max|ref| of plain and of "
+          f"K3, max|diff| {err_main:.3g}, bit-equal to K3: {same_bits}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({label})")
+    return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None}
+
+
+def check_matvec_recompute(label: str, dev) -> dict:
+    """K6 against its plain version (its whole output) and against K3's
+    matvec inside the image."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    err_main = None
+    for b, h, w in MATVEC_SHAPES:
+        img, planes, p = _matvec_operands(g, dev, b, h, w)
+        static = K6.pack_static(torch.ones_like(p), img, planes[:, 0:6])
+        p_pad = K6.pad_p(p)
+        got = K6.matvec_planes(p_pad, static)
+        ref = K6.matvec_planes_plain(p_pad, static)
+        k3 = KMV.matvec_planes(planes, img, p)
+        scale = k3.abs().max()
+        e = _rel_err(got, ref, scale)
+        e3 = _rel_err(got[:, :h, :w], k3, scale)
+        if not (e < 1e-5 and e3 < 1e-5):
+            fail(f"matvec_recompute {(b, h, w)}: max|diff|/max|ref| {e} "
+                 f"against plain, {e3} against K3 (bound 1e-5)")
+        if err_main is None:
+            err_main = float((got - ref).abs().max())
+            err_k3 = e3
+            args = (p_pad, static)
+    ms = median_ms(lambda: K6.matvec_planes(*args))
+    plain_ms = median_ms(lambda: K6.matvec_planes_plain(*args))
+    # the least the function must move: 10 static planes and p at the
+    # image and its halo of 2 read (the zero columns beyond W + 4 are
+    # layout), and the (rows of 32, padded width) output its contract
+    # writes
+    px = BATCH * MH * MW
+    halo_px = BATCH * (MH + 4) * (MW + 4)
+    out_px = BATCH * K6._out_rows(args[0].shape[1]) * args[0].shape[2]
+    bd = bound((11 * halo_px + out_px) * 4, RECOMPUTE_OPS * px)
+    print(f"[kernels] matvec_recompute (4, 10, {args[1].shape[2]}, "
+          f"{args[1].shape[3]}) f32: within 1e-5 of max|ref| of plain and of "
+          f"K3 ({err_k3:.3g}), max|diff| {err_main:.3g}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({label})")
+    return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None}
 
 
 def check_quantize(label: str, dev) -> dict:
@@ -197,9 +378,16 @@ def check_quantize(label: str, dev) -> dict:
             args = (rgb, alpha, pal, k_real, thr)
     ms = median_ms(lambda: KQ.quantize_map(*args))
     plain_ms = median_ms(lambda: KQ.quantize_map_plain(*args))
+    # 3 + 1 bytes read and 3 written per pixel, plus the palettes. Per
+    # pixel and palette entry 3 subtractions, 3 multiplications, 2
+    # additions and a comparison (9 x 16), plus the brightness test (8)
+    px = BATCH * H4K * W4K
+    bd = bound(7 * px + BATCH * 16 * 3 * 4, (9 * 16 + 8) * px)
     print(f"[kernels] quantize (4, {H4K}, {W4K}, 3) u8 k=16: bit-exact; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({label})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} "
+          f"ms by {bd['bound_by']} ({label})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -236,11 +424,10 @@ def run_slice(label: str) -> dict:
     pipe.run(x)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
-    for mod, _, _ in KERNELS.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     out = pipe.run(x)
     torch.cuda.synchronize()
-    launches = {name: mod.LAUNCHES for name, (mod, _, _) in KERNELS.items()}
+    launches = {k: v for k, v in read_counts().items() if k in MAIN_PATH}
     print(f"[slice] kernel launches in one Pipeline.run: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -330,13 +517,195 @@ def card_vs_cpu(label: str) -> None:
         fail(f"card and CPU stages differ from the same CNN mask: {same}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the matvec variant bench, the path that launches K5 and K6
+# ---------------------------------------------------------------------------
+
+def run_variants(label: str) -> dict:
+    zero_counts()
+    rows = BENCH.run("cuda", BATCH, MH, MW, inner=INNER)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if k in VARIANT_PATH}
+    for row in rows:
+        print(f"[variants] {row['name']:20s} {BATCH}x{MH}x{MW}: "
+              f"{row['ms_per_matvec']:.4f} ms/matvec over {INNER} fed-back "
+              f"matvecs, drift against the plain loop {row['drift']:.3g} "
+              f"({label})")
+        if not (np.isfinite(row["ms_per_matvec"]) and row["drift"] < 1e-5):
+            fail(f"variant {row['name']}: drift {row['drift']} >= 1e-5")
+    print(f"[variants] kernel launches in one bench run: {launches}")
+    for name, n in launches.items():
+        if n < INNER:
+            fail(f"kernel {name} was launched {n} times by the variant "
+                 f"bench, fewer than its {INNER} matvecs")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the compat path
+# ---------------------------------------------------------------------------
+
+def compat_case(h: int, w: int, seed: int):
+    """A seeded photo-like frame with an elliptic subject, a soft-edged
+    alpha for it as a segmentation net would give, and two strokes."""
+    a, b = photo_batch(2, h, w, seed).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r = np.hypot((yy - 0.5 * h) / (0.32 * h), (xx - 0.5 * w) / (0.28 * w))
+    soft = np.clip((1.0 - r) * (0.04 * min(h, w)) + 0.5, 0.0, 1.0)
+    frame = soft[..., None] * (0.6 * a + 90.0) + (1 - soft[..., None]) * 0.7 * b
+    rgb = np.clip(frame, 0, 255).astype(np.uint8)
+    alpha = np.clip(np.floor(soft * 255.0 + 0.5), 0, 255).astype(np.uint8)
+    user = np.zeros((h, w), np.uint8)
+    user[int(0.48 * h):int(0.52 * h), int(0.45 * w):int(0.55 * w)] = 1
+    user[int(0.02 * h):int(0.04 * h), int(0.05 * w):int(0.40 * w)] = 2
+    return rgb, alpha, user
+
+
+class RungRecorder:
+    """Wraps compat.matting_refine's estimate_alpha_cf to note which rungs
+    of the ladder ran and which one answered."""
+
+    def __init__(self):
+        self.calls = []
+        self._inner = REFINE.estimate_alpha_cf
+
+    def __call__(self, image01, trimap, **kw):
+        name = ("x64" if kw.get("x64") else
+                "eps1e-6" if kw.get("laplacian_kwargs") else "basic")
+        self.calls.append(name)
+        return self._inner(image01, trimap, **kw)
+
+    def __enter__(self):
+        REFINE.estimate_alpha_cf = self
+        return self
+
+    def __exit__(self, *exc):
+        REFINE.estimate_alpha_cf = self._inner
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _check_alpha(a, hw, what):
+    if a.dtype != np.uint8 or a.shape != tuple(hw):
+        fail(f"{what}: alpha is {a.dtype} {a.shape}, expected uint8 {hw}")
+
+
+def run_compat(label: str) -> None:
+    h, w = COMPAT_HW
+    rgb, soft_alpha, user = compat_case(h, w, seed=7)
+    zero_counts()
+
+    # AI background removal: the full U^2-Net at its published widths
+    bgr = np.ascontiguousarray(rgb[:, :, ::-1])
+    REMBG.rembg_remove_bgr_to_rgba(bgr, model="u2net")  # warm-up (cuDNN plans)
+    rgba, ms = _timed(lambda: REMBG.rembg_remove_bgr_to_rgba(bgr,
+                                                             model="u2net"))
+    if rgba.dtype != np.uint8 or rgba.shape != (h, w, 4):
+        fail(f"rembg: output is {rgba.dtype} {rgba.shape}")
+    if not np.array_equal(rgba[..., :3], rgb):
+        fail("rembg: the colour channels are not the input's")
+    if not np.isin(rgba[..., 3], (0, 255)).all():
+        fail("rembg: sharp alpha is not in {0, 255}")
+    sess = REMBG._get_session("u2net")
+    n_par = sum(p.numel() for p in sess.module.parameters())
+    print(f"[compat] rembg_remove_bgr_to_rgba(u2net, {n_par / 1e6:.1f} M "
+          f"parameters, seeded) {h}x{w}: ok, opaque share "
+          f"{(rgba[..., 3] > 0).mean():.3f}; {ms:.3f} ms ({label})")
+    cnn_alpha = sess.predict_mask(rgb)
+
+    # refine from the CNN's alpha: seeded weights give a meaningless mask,
+    # so any rung of the ladder may answer
+    with RungRecorder() as rec:
+        out, ms = _timed(lambda: REFINE.refine_alpha_portrait(
+            rgb, cnn_alpha, user))
+    _check_alpha(out, (h, w), "refine from the CNN alpha")
+    info = dict(MAT.LAST_SOLVE_INFO)
+    answered = rec.calls[-1] if info or rec.calls[-1] != "x64" \
+        else "x64 or the morphological refine"
+    print(f"[compat] refine_alpha_portrait from the CNN alpha {h}x{w}: rungs "
+          f"run {rec.calls}, answered by {answered} (f32 iterations "
+          f"{info.get('f32_iters')}, polish iterations "
+          f"{info.get('polish_iters')}, polish converged "
+          f"{info.get('polish_converged')}); {ms:.3f} ms ({label})")
+
+    # refine from a soft-edged alpha with strokes: rung 1 must answer
+    with RungRecorder() as rec:
+        out, ms = _timed(lambda: REFINE.refine_alpha_portrait(
+            rgb, soft_alpha, user))
+    info = dict(MAT.LAST_SOLVE_INFO)
+    _check_alpha(out, (h, w), "refine from the synthetic alpha")
+    if rec.calls != ["basic"]:
+        fail(f"synthetic refine: rungs {rec.calls} ran, expected the first")
+    if not (info.get("f32_iters", 0) > 0 and info.get("polish_converged")
+            and info.get("polish_backend") == "f64"):
+        fail(f"synthetic refine: no f32 solve + converged f64 polish: {info}")
+    if not ((out[user == 1] == 255).all() and (out[user == 2] == 0).all()):
+        fail("synthetic refine: the strokes are not 255 and 0 in the output")
+    agree = float((np.abs(out.astype(np.int32) - soft_alpha) <= 32).mean())
+    if agree < 0.95:
+        fail(f"synthetic refine: only {agree} of the alpha is near its init")
+    print(f"[compat] refine_alpha_portrait from the synthetic alpha {h}x{w} "
+          f"(solved at 768x1024): rung 1, f32 {info['f32_iters']} iterations "
+          f"{info['t_f32'] * 1e3:.3f} ms, float64 polish on the card "
+          f"{info['polish_iters']} iterations {info['t_polish'] * 1e3:.3f} ms; "
+          f"{ms:.3f} ms in all ({label})")
+
+    out_full, ms = _timed(lambda: REFINE.refine_alpha_portrait_full_res(
+        rgb, soft_alpha, user))
+    _check_alpha(out_full, (h, w), "full-resolution refine")
+    if not ((out_full[user == 1] == 255).all()
+            and (out_full[user == 2] == 0).all()):
+        fail("full-resolution refine: the strokes are not enforced")
+    print(f"[compat] refine_alpha_portrait_full_res {h}x{w}: ok; {ms:.3f} ms "
+          f"({label})")
+    print(f"[compat] kernel launches on the compat path: "
+          f"{ {k: v for k, v in read_counts().items() if v} }")
+
+    # the plain full-inverse matvec the compat rungs run, for the record
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for dt in (torch.float32, torch.float64):
+        img = torch.rand((1, 3, 768, 1024), generator=g, device="cuda",
+                         dtype=dt)
+        p = torch.randn((1, 768, 1024), generator=g, device="cuda", dtype=dt)
+        pre = MAT._precompute(img, 1e-7, 1)
+        ms = median_ms(lambda: MAT._matvec(pre, p, 1))
+        print(f"[compat] plain full-inverse matvec 1x768x1024 {dt}: "
+              f"{ms:.4f} ms ({label})")
+
+    # card against CPU
+    sh, sw = COMPAT_SMALL_HW
+    rgb_s, alpha_s, user_s = compat_case(sh, sw, seed=9)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = REFINE.refine_alpha_portrait(rgb_s, alpha_s, user_s,
+                                                device=dev)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        info = dict(MAT.LAST_SOLVE_INFO)
+        if not info.get("polish_converged"):
+            fail(f"refine {sh}x{sw} on {dev}: rung 1 did not answer: {info}")
+        print(f"[compat] refine_alpha_portrait {sh}x{sw} on {dev}: f32 "
+              f"{info['f32_iters']} iterations, polish {info['polish_iters']}; "
+              f"{dt_ms:.3f} ms ({label})")
+    d = np.abs(res["cuda"].astype(np.int32) - res["cpu"].astype(np.int32))
+    print(f"[compat] card against CPU {sh}x{sw}: uint8 alpha equal on "
+          f"{(d == 0).mean():.6f}, max step {d.max()}")
+    if d.max() > 1 or (d == 0).mean() < 0.999:
+        fail("compat refine differs between the card and the CPU")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
     dev = torch.device("cuda")
     label = card_label()
     print(f"[card] {label}")
-    print(label)
     strict_f32()
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -351,13 +720,18 @@ def main() -> None:
         "precompute": check_precompute(label, dev),
         "matvec": check_matvec(label, dev),
         "quantize": check_quantize(label, dev),
+        "matvec_stack": check_matvec_stack(label, dev),
+        "matvec_recompute": check_matvec_recompute(label, dev),
     }
     launches = run_slice(label)
     card_vs_cpu(label)
+    launches.update(run_variants(label))
+    run_compat(label)
 
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[name], **results[name]}
-             for name, (_, src, rep) in KERNELS.items()]
+             for name, (_, _, src, rep) in KERNELS.items()]
+    print(label)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,111 @@
+"""Microbench: the CG matvec L @ p in its four forms.
+
+Counterpart of the repo's bench/micro_matvec.py (the JAX package's XLA
+stencil against its Pallas matvec variants). Here: the plain PyTorch
+formulation (`laplacian_matvec_plain`, packed factors), K3
+(`matvec_planes`, reads K2's planes), K5 (`matvec_stack`, reads the padded
+13-plane stack) and K6 (`kernels.matting.matvec_planes`, recomputes the
+window means from 10 planes). On a CPU tensor each kernel's wrapper takes
+its plain version, so a CPU run checks the plumbing only.
+
+Protocol, as in the JAX bench: the output is fed back, q <- q + 1e-6 L q,
+`inner` times, so nothing is dead and the iterate stays bounded; the loop
+is timed as a whole (CUDA events on the card, the host clock on the CPU)
+after one warm-up matvec, and each variant's final q is compared with the
+plain loop's (the drift). The TPU tile sweeps of the JAX bench are TPU
+schedule and have no counterpart.
+
+    python -m image_segmenter_tpu_torch.bench.micro_matvec [cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+from image_segmenter_tpu_torch.kernels import matting as K6
+from image_segmenter_tpu_torch.kernels import matvec as KMV
+from image_segmenter_tpu_torch.kernels import precompute as KP
+from image_segmenter_tpu_torch.utils.backend import resolve_device
+
+
+def setup(device, b: int, h: int, w: int, seed: int = 0):
+    """Seeded operands: images and p from numpy, K2's planes, K5's stack
+    and K6's static planes."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.random((b, h, w, 3), dtype=np.float32)) \
+        .permute(0, 3, 1, 2).contiguous().to(dev)
+    ps = torch.from_numpy(
+        rng.standard_normal((b, h, w)).astype(np.float32)).to(dev)
+    planes = KP.precompute_planes(imgs, 1e-7)
+    stack = KMV.build_matvec_stack_planes(imgs, planes)
+    ones = torch.ones((b, h, w), dtype=torch.float32, device=dev)
+    static = K6.pack_static(ones, imgs, planes[:, 0:6])
+    return imgs, ps, planes, stack, static
+
+
+def variants(imgs, planes, stack, static):
+    """name -> matvec(q) for the four forms, on the same operands."""
+    h, w = imgs.shape[2:]
+    n, mu, ldl = planes[:, 7], planes[:, 8:11], planes[:, 0:6]
+    return {
+        "plain": lambda q: KMV.laplacian_matvec_plain(imgs, n, mu, ldl, q),
+        "K3 matvec_planes": lambda q: KMV.matvec_planes(planes, imgs, q),
+        "K5 matvec_stack": lambda q: KMV.matvec_stack(stack, q),
+        "K6 matvec_recompute":
+            lambda q: K6.matvec_planes(K6.pad_p(q), static)[:, :h, :w],
+    }
+
+
+def _loop(mv, q: torch.Tensor, inner: int):
+    """(final q, ms per matvec) of `inner` fed-back matvecs."""
+    on_card = q.is_cuda
+    mv(q)  # warm-up: builds the library, fills caches
+    if on_card:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+    else:
+        t0 = time.perf_counter()
+    for _ in range(inner):
+        q = q + 1e-6 * mv(q)
+    if on_card:
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+    return q, ms / inner
+
+
+def run(device="cuda", b: int = 4, h: int = 576, w: int = 1024,
+        inner: int = 50) -> list:
+    """One row per variant: {"name", "ms_per_matvec", "drift"}; drift is
+    max|q - q_plain| / max|q_plain| after `inner` fed-back matvecs."""
+    imgs, ps, planes, stack, static = setup(device, b, h, w)
+    rows, ref = [], None
+    for name, mv in variants(imgs, planes, stack, static).items():
+        out, ms = _loop(mv, ps, inner)
+        if ref is None:
+            ref = out
+        drift = float((out - ref).abs().max() / (ref.abs().max() + 1e-30))
+        rows.append({"name": name, "ms_per_matvec": ms, "drift": drift})
+    return rows
+
+
+def main(argv) -> None:
+    device = argv[1] if len(argv) > 1 else "cuda"
+    for b in (1, 4):
+        for row in run(device, b=b):
+            print(f"{row['name']:24s} b={b} {row['ms_per_matvec']:8.4f} "
+                  f"ms/matvec  50-iter drift vs plain {row['drift']:.2e}",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv)

@@ -22,9 +22,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # --fmad=false: no contraction of a*b+c into FMAs, so each kernel rounds
-# where its plain PyTorch version rounds (K2, K3 match it bit for bit)
+# where its plain PyTorch version rounds (K2, K3 match it bit for bit).
+# --threads 0: nvcc compiles the sources side by side, one thread a core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "--threads", "0", "-shared",
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,6 +46,12 @@ SIGNATURES = {
     # (rgb u8 (B, H*W, 3), fit u8 (B, H*W), centers f32 (B, k_max, 3),
     #  thr f32 (B,), B, H*W, k_max, k_real, out u8 (B, H*W, 3), stream)
     "iseg_quantize": [_P, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P],
+    # (stack f32 (B, 13, Hp, Wp), p f32 (B, H, W), B, H, W, Hp, Wp,
+    #  out f32 (B, H, W), stream)
+    "iseg_matvec_stack": [_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P],
+    # (p_pad f32 (B, Hp, Wp), static f32 (B, 10, Hp, Wp), B, Hp, Wp, Ho,
+    #  out f32 (B, Ho, Wp), stream)
+    "iseg_matvec_recompute": [_P, _P, _I32, _I32, _I32, _I32, _P, _P],
 }
 
 _lib = None

@@ -17,6 +17,8 @@ entry within 1e-4 in absolute or relative terms.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -26,7 +28,6 @@ from image_segmenter_tpu_torch.utils.backend import targets_cuda
 LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
 
 NPLANES = 12
-_SHIFTS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 _DELTA = 1e-5  # f32 scale-aware ridge
 
 
@@ -52,40 +53,81 @@ def precompute_planes(img: torch.Tensor, epsilon: float) -> torch.Tensor:
     return out
 
 
-def _pad1(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    return F.pad(x, (1, 1, 1, 1), value=fill)
+def shifts(radius: int = 1):
+    return [(dy, dx) for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)]
 
 
-def _sl(xp: torch.Tensor, dy: int, dx: int, h: int, w: int) -> torch.Tensor:
-    """out[p] = x[p + (dy, dx)] from a 1-padded array."""
-    return xp[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+_SHIFTS = shifts(1)
 
 
-def _box(xp: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """3x3 box sum of a zero-padded array: columns over dx, then rows."""
-    cols = (xp[..., :, 0:w] + xp[..., :, 1:1 + w]) + xp[..., :, 2:2 + w]
-    return (cols[..., 0:h, :] + cols[..., 1:1 + h, :]) + cols[..., 2:2 + h, :]
+def _pad1(x: torch.Tensor, fill: float = 0.0, r: int = 1) -> torch.Tensor:
+    """Pad H and W by r on all sides; shifted reads become slices."""
+    return F.pad(x, (r, r, r, r), value=fill)
 
 
-def precompute_planes_plain(img: torch.Tensor, epsilon: float) -> torch.Tensor:
-    """The plain version: solvers/matting._precompute of the JAX package
-    (XLA branch, half_stats, radius 1, f32), batched, channels first."""
+def _sl(xp: torch.Tensor, dy: int, dx: int, h: int, w: int,
+        r: int = 1) -> torch.Tensor:
+    """out[p] = x[p + (dy, dx)] from an r-padded array."""
+    return xp[..., r + dy:r + dy + h, r + dx:r + dx + w]
+
+
+def _box(xp: torch.Tensor, h: int, w: int, r: int = 1) -> torch.Tensor:
+    """(2r+1)^2 box sum of a zero-padded array: columns over dx, then rows
+    over dy, each summed left to right."""
+    cols = xp[..., :, 0:w]
+    for k in range(1, 2 * r + 1):
+        cols = cols + xp[..., :, k:k + w]
+    rows = cols[..., 0:h, :]
+    for k in range(1, 2 * r + 1):
+        rows = rows + cols[..., k:k + h, :]
+    return rows
+
+
+class WindowFactors(NamedTuple):
+    """Per-window statistics of a (B, 3, H, W) image, each (B, H, W) or
+    (B, k, H, W)."""
+    ldl: torch.Tensor      # (B, 6, H, W) [i1, i2, i3, l21, l31, l32]
+    inv: torch.Tensor      # (B, 6, H, W) [inv00, inv01, inv02, inv11, inv12,
+                           # inv22] of the symmetric (Sigma + eps/n I)^-1
+    diag: torch.Tensor     # diag(L)
+    n: torch.Tensor        # window size (== windows covering the pixel)
+    mu: torch.Tensor       # (B, 3, H, W) window means
+    rankdef: torch.Tensor  # bool: window exactly rank-deficient
+
+
+def window_factors(img: torch.Tensor, epsilon: float,
+                   radius: int = 1) -> WindowFactors:
+    """solvers/matting._precompute of the JAX package (its XLA
+    formulation), batched, channels first, for any radius, in the image's
+    type (float32 or float64).
+
+    The inverse comes from an LDL' factorisation of the unnormalised ridge
+    matrix A_k = sum_j d_j d_j' + eps_w I (d_j = I_j - mu_k), whose pivots
+    are sums of squares of explicit regression residuals (three passes
+    over the window shifts): no cancellation at any conditioning. The
+    ridge is scale-aware in float32, eps_w = max(eps, 1e-5 tr(Z'Z)), and
+    exactly eps in float64, which exists to be the reference operator.
+    """
     b, _, h, w = img.shape
-    ones = torch.ones((b, h, w), dtype=torch.float32, device=img.device)
-    v_pad = _pad1(ones)
-    img_pad = _pad1(img)
+    r = radius
+    sh = shifts(r)
+    dt = img.dtype
+    ones = torch.ones((b, h, w), dtype=dt, device=img.device)
+    v_pad = _pad1(ones, r=r)
+    img_pad = _pad1(img, r=r)
 
-    n_k = _box(v_pad, h, w)
-    mu = _box(img_pad, h, w) / n_k[:, None]
+    n_k = _box(v_pad, h, w, r)
+    mu = _box(img_pad, h, w, r) / n_k[:, None]
 
     def centred(dy, dx):
-        v = _sl(v_pad, dy, dx, h, w)
-        d = (_sl(img_pad, dy, dx, h, w) - mu) * v[:, None]
+        v = _sl(v_pad, dy, dx, h, w, r)
+        d = (_sl(img_pad, dy, dx, h, w, r) - mu) * v[:, None]
         return v, d[:, 0], d[:, 1], d[:, 2]
 
     # pass A: first-channel moments -> l21, l31, and the trace for the ridge
     a00 = a01 = a02 = a11 = a22 = torch.zeros_like(n_k)
-    for dy, dx in _SHIFTS:
+    for dy, dx in sh:
         _, d0, d1, d2 = centred(dy, dx)
         a00 = a00 + d0 * d0
         a01 = a01 + d0 * d1
@@ -93,14 +135,15 @@ def precompute_planes_plain(img: torch.Tensor, epsilon: float) -> torch.Tensor:
         a11 = a11 + d1 * d1
         a22 = a22 + d2 * d2
     tr = (a00 + a11) + a22
-    eps_w = torch.clamp_min(_DELTA * tr, epsilon)
+    delta = _DELTA if dt == torch.float32 else 0.0
+    eps_w = torch.clamp_min(delta * tr, epsilon)
     p1 = a00 + eps_w
     l21 = a01 / p1
     l31 = a02 / p1
 
     # pass B: residuals of ch2/ch3 on ch1 -> p2, l32
     q22 = q23 = torch.zeros_like(n_k)
-    for dy, dx in _SHIFTS:
+    for dy, dx in sh:
         v, d0, d1, d2 = centred(dy, dx)
         r2 = d1 - l21 * d0
         r3 = d2 - l31 * d0
@@ -111,7 +154,7 @@ def precompute_planes_plain(img: torch.Tensor, epsilon: float) -> torch.Tensor:
 
     # pass C: residual of ch3 on (ch1, ch2) -> p3
     q3 = torch.zeros_like(n_k)
-    for dy, dx in _SHIFTS:
+    for dy, dx in sh:
         v, d0, d1, d2 = centred(dy, dx)
         rr = (d2 - l31 * d0) - l32 * (d1 - l21 * d0)
         q3 = q3 + v * rr * rr
@@ -134,15 +177,24 @@ def precompute_planes_plain(img: torch.Tensor, epsilon: float) -> torch.Tensor:
     # reindexed by the window k: g_s(k) reads the member k - s.
     diag_sum = torch.zeros_like(n_k)
     nk_safe = torch.clamp_min(n_k, 1.0)
-    for dy, dx in _SHIFTS:
-        d = _sl(img_pad, -dy, -dx, h, w) - mu
+    for dy, dx in sh:
+        d = _sl(img_pad, -dy, -dx, h, w, r) - mu
         d0, d1, d2 = d[:, 0], d[:, 1], d[:, 2]
         quad = (inv00 * d0 * d0 + inv11 * d1 * d1 + inv22 * d2 * d2
                 + 2.0 * (inv01 * d0 * d1 + inv02 * d0 * d2 + inv12 * d1 * d2))
         g = (1.0 + quad) / nk_safe
-        diag_sum = diag_sum + _sl(_pad1(g), dy, dx, h, w)
+        diag_sum = diag_sum + _sl(_pad1(g, r=r), dy, dx, h, w, r)
     diag = n_k - diag_sum
 
-    return torch.stack([i1, i2, i3, l21, l31, l32, diag, n_k,
-                        mu[:, 0], mu[:, 1], mu[:, 2],
-                        rankdef.to(torch.float32)], dim=1)
+    return WindowFactors(
+        torch.stack([i1, i2, i3, l21, l31, l32], dim=1),
+        torch.stack([inv00, inv01, inv02, inv11, inv12, inv22], dim=1),
+        diag, n_k, mu, rankdef)
+
+
+def precompute_planes_plain(img: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """The plain version: solvers/matting._precompute of the JAX package
+    (XLA branch, half_stats, radius 1, f32), batched, channels first."""
+    f = window_factors(img, epsilon, 1)
+    return torch.cat([f.ldl, f.diag[:, None], f.n[:, None], f.mu,
+                      f.rankdef.to(torch.float32)[:, None]], dim=1)

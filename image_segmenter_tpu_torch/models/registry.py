@@ -8,6 +8,11 @@ lecun-normal conv kernels, zero biases, identity BatchNorm statistics),
 drawn from an explicit CPU `torch.Generator` so that every device gets the
 same weights. Real weights can be loaded with `Session.load_state_dict`
 (models/convert.state_from_flax carries the JAX package's variables over).
+
+Pre- and postprocessing follow rembg's sessions/base.py, as the JAX
+package's do: PIL-Lanczos resize to the model's input size, divide by the
+image max, mean/std normalisation, min-max normalisation of the predicted
+saliency, Lanczos resize back to the input's size.
 """
 
 from __future__ import annotations
@@ -17,9 +22,11 @@ import threading
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from image_segmenter_tpu_torch.models import u2net as NETS
+from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.utils.backend import resolve_device
 
 
@@ -103,6 +110,53 @@ class Session:
         """Load a rembg-named state dict (strict)."""
         self.module.load_state_dict(state, strict=True)
         self.weights_loaded = True
+
+    def _normalize(self, img_u8: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) u8 -> (1, 3, H, W) float32: rembg divides by the
+        image max, then subtracts the mean and divides by the std."""
+        x = img_u8.to(torch.float32)
+        x = x / torch.clamp_min(x.max(), 1e-6)
+        mean = torch.tensor(self.spec.mean, dtype=torch.float32,
+                            device=x.device)
+        std = torch.tensor(self.spec.std, dtype=torch.float32,
+                           device=x.device)
+        return ((x - mean) / std).permute(2, 0, 1)[None]
+
+    @torch.no_grad()
+    def _forward(self, rgb: np.ndarray) -> torch.Tensor:
+        """(H, W, 3) u8 image -> the network's fused output (C, nh, nw)
+        float32 at the network's input size."""
+        x = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
+        small = RZ.resize_u8(x[None], self.spec.size, RZ.LANCZOS_PIL)[0]
+        return self.module(self._normalize(small))[0][0].to(torch.float32)
+
+    def predict_mask(self, rgb: np.ndarray) -> np.ndarray:
+        """rembg-style saliency mask: uint8 (H, W) at the input's size.
+
+        Multi-class heads (u2net_cloth_seg: 4 classes, class 0 =
+        background) give the union of the non-background classes by
+        argmax."""
+        d0 = self._forward(rgb)
+        if self.spec.out_ch > 1:
+            mask = (torch.argmax(d0, dim=0) != 0).to(torch.float32)
+        else:
+            d0 = d0[0]
+            mi, ma = d0.min(), d0.max()  # min-max normalise (rembg post)
+            mask = (d0 - mi) / torch.clamp_min(ma - mi, 1e-12)
+        mask_u8 = torch.clamp(torch.floor(mask * 255.0 + 0.5), 0, 255) \
+            .to(torch.uint8)
+        return RZ.resize_u8(mask_u8[None], rgb.shape[:2],
+                            RZ.LANCZOS_PIL)[0].cpu().numpy()
+
+    def predict_class_masks(self, rgb: np.ndarray) -> np.ndarray:
+        """Per-class masks of a multi-class head (rembg's cloth_seg gives
+        one mask per garment class): (C - 1, H, W) uint8, class 0 =
+        background."""
+        cls = torch.argmax(self._forward(rgb), dim=0)
+        masks = torch.stack([(cls == c).to(torch.uint8) * 255
+                             for c in range(1, self.spec.out_ch)])
+        return RZ.resize_u8(masks, rgb.shape[:2], RZ.LANCZOS_PIL) \
+            .cpu().numpy()
 
 
 _sessions_lock = threading.Lock()

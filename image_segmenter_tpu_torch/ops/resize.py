@@ -146,6 +146,57 @@ def resize_u8(img: torch.Tensor, dst_hw: tuple, method: str = LINEAR) -> torch.T
     return torch.clamp(torch.floor(x + 0.5), 0, 255).to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=None)
+def _linear_aa_weights(src: int, dst: int, f64: bool) -> np.ndarray:
+    """(dst, src) weights of `jax.image.resize(..., "linear")`, which the
+    JAX package's matting pyramid uses: a triangle filter at half-pixel
+    centres, widened by the shrink factor when it shrinks (antialiasing)
+    and normalised per output sample. Evaluated in the working type
+    (float32, or float64 for the float64 rungs) in jax's order of
+    operations: the same floats for an even 2:1 shrink, within an ulp or
+    two of jax's otherwise (XLA fuses the expression its own way)."""
+    dt = np.float64 if f64 else np.float32
+    inv_scale = dt(1.0 / (dst / src))  # jax inverts the Python float
+    kernel_scale = max(inv_scale, dt(1.0))
+    # XLA contracts the product and the subtraction into one fused
+    # multiply-add: the float64 product of two float32 values is exact,
+    # so rounding after the subtraction gives the same float
+    sample_f = ((np.arange(dst, dtype=dt) + dt(0.5)).astype(np.float64)
+                * np.float64(inv_scale) - 0.5).astype(dt)
+    x = np.abs(sample_f[None, :] - np.arange(src, dtype=dt)[:, None]) \
+        / kernel_scale
+    w = np.maximum(dt(0.0), dt(1.0) - x)
+    tot = w.sum(axis=0, keepdims=True, dtype=dt)
+    w = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(tot != 0, tot, dt(1.0)), dt(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= src - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, dt(0.0)).T
+                                .astype(dt))
+
+
+def resize_linear_aa(img: torch.Tensor, dst_hw: tuple) -> torch.Tensor:
+    """`jax.image.resize(img, dst_hw, "linear")` for a (B, H, W) or
+    (B, H, W, C) float32 or float64 batch, in the input's type. The
+    contractions accumulate in float64 and round once, as `resize` does."""
+    b, h, w = img.shape[:3]
+    tail = img.shape[3:]
+    dh, dw = int(dst_hw[0]), int(dst_hw[1])
+    f64 = img.dtype == torch.float64
+    x = img.to(torch.float64)
+    if h != dh:
+        wy = torch.from_numpy(_linear_aa_weights(h, dh, f64)).to(
+            device=x.device, dtype=torch.float64)
+        x = torch.matmul(wy, x.reshape(b, h, -1))
+    if w != dw:
+        wx = torch.from_numpy(_linear_aa_weights(w, dw, f64)).to(
+            device=x.device, dtype=torch.float64)
+        c = x.shape[-1] // w if x.dim() == 3 else int(np.prod(tail, dtype=int))
+        x = x.reshape(b * dh, w, c).transpose(1, 2).reshape(-1, w)
+        x = torch.matmul(x, wx.t())
+        x = x.reshape(b * dh, c, dw).transpose(1, 2)
+    return x.reshape(b, dh, dw, *tail).to(img.dtype)
+
+
 def scale_to_max_dim(h: int, w: int, max_dim: int) -> tuple:
     """The reference's shrink rule: scale = min(max_dim/h, max_dim/w).
 

@@ -220,7 +220,7 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
         alpha_m, _, _, _ = solve_alpha_cf(
             true_div(rgb_s.to(torch.float32), 255.0), trimap,
             max_iter=cg_iters, rtol=1e-4,
-            x0=true_div(a_s.to(torch.float32), 255.0))
+            x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True)
         alpha_m_u8 = torch.clamp(torch.floor(alpha_m * 255.0 + 0.5), 0, 255) \
             .to(torch.uint8)
         if (sh, sw) != (h, w):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from image_segmenter_tpu_torch.kernels import histogram as KH
+from image_segmenter_tpu_torch.kernels import matting as K6
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
@@ -68,6 +69,59 @@ def test_matvec_kernel_matches_plain(cuda, bhw):
     got = KMV.matvec_planes(planes, img, p)
     ref = KMV.matvec_planes_plain(planes, img, p)
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def _matvec_operands(cuda, bhw, seed):
+    g = _gen(cuda, seed)
+    b, h, w = bhw
+    img = torch.rand((b, 3, h, w), generator=g, device=cuda)
+    planes = KP.precompute_planes(img, 1e-7)
+    p = torch.randn((b, h, w), generator=g, device=cuda)
+    return img, planes, p
+
+
+# (1, 16, 124): W + 4 is a multiple of 128, so a tile's halo passes the
+# padded width and the kernels' bounds checks are what keeps them in range
+RAGGED = [(2, 37, 53), (1, 33, 130), (3, 64, 96), (1, 16, 124)]
+
+
+@pytest.mark.parametrize("bhw", RAGGED)
+def test_matvec_stack_kernel_matches_plain_and_k3(cuda, bhw):
+    """K5 within 1e-5 of max|ref| of its plain version (the bound the JAX
+    tests hold the Pallas kernel to), and bit-equal to K3 on the same
+    operands: same arithmetic in the same order, no FMA contraction."""
+    img, planes, p = _matvec_operands(cuda, bhw, 5)
+    stack = KMV.build_matvec_stack_planes(img, planes)
+    before = KMV.STACK_LAUNCHES
+    got = KMV.matvec_stack(stack, p)
+    assert KMV.STACK_LAUNCHES == before + 1
+    ref = KMV.matvec_stack_plain(stack, p)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert torch.equal(got, KMV.matvec_planes(planes, img, p))
+    one = KMV.matvec_stack(stack[0], p[0])  # the unbatched form
+    assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("bhw", RAGGED)
+def test_matvec_recompute_kernel_matches_plain(cuda, bhw):
+    """K6 within 1e-5 of max|ref| of its plain version over its whole
+    output (the partial sums next to the image included), and of K3's
+    matvec inside the image."""
+    img, planes, p = _matvec_operands(cuda, bhw, 6)
+    b, h, w = bhw
+    static = K6.pack_static(torch.ones_like(p), img, planes[:, 0:6])
+    p_pad = K6.pad_p(p)
+    before = K6.LAUNCHES
+    got = K6.matvec_planes(p_pad, static)
+    assert K6.LAUNCHES == before + 1
+    ref = K6.matvec_planes_plain(p_pad, static)
+    assert got.shape == ref.shape
+    scale = float(ref[:, :h, :w].abs().max())
+    assert float((got - ref).abs().max()) / scale < 1e-5
+    k3 = KMV.matvec_planes(planes, img, p)
+    assert float((got[:, :h, :w] - k3).abs().max()) / scale < 1e-5
+    one = K6.matvec_planes(p_pad[0], static[0])  # the unbatched form
+    assert torch.equal(one, got[0])
 
 
 @pytest.mark.parametrize("bhw,k_real", [((2, 37, 53), 11), ((1, 128, 200), 16)])

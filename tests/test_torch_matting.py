@@ -153,7 +153,7 @@ def test_batched_solve_matches_vmapped_jax(hw):
         jnp.asarray(img), jnp.asarray(tri), jnp.asarray(x0))
     ta, tok, tit, tres = TMAT.solve_alpha_cf(
         torch.from_numpy(img), torch.from_numpy(tri), max_iter=200,
-        rtol=1e-4, x0=torch.from_numpy(x0))
+        rtol=1e-4, x0=torch.from_numpy(x0), half_stats=True)
     np.testing.assert_array_equal(tit.numpy(), np.asarray(jit))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     assert len(set(tit.tolist())) > 1  # images stop at different iterations
@@ -176,5 +176,6 @@ def test_solve_caps_iterations():
     img = _image(rng, 24, 40)
     tri, x0 = _trimap_x0(rng, 2, 24, 40)
     _, ok, it, _ = TMAT.solve_alpha_cf(
-        torch.from_numpy(img), torch.from_numpy(tri), max_iter=3, rtol=1e-9)
+        torch.from_numpy(img), torch.from_numpy(tri), max_iter=3, rtol=1e-9,
+        half_stats=True)
     assert it.tolist() == [3, 3] and not ok.any()
