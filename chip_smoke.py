@@ -6,13 +6,14 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
-2. build: compiles the six CUDA kernels from kernels/csrc with nvcc;
+2. build: compiles the eight CUDA kernels from kernels/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at ragged shapes, with warm timings, its bound
    (the least time the card could take: bytes over the memory rate or
    operations over the float32 rate, whichever is larger) and, where one
    PyTorch call computes the same function, that call's time; K5 and K6
-   also against K3's output on the same operands;
+   also against K3's output on the same operands, K7 against K4's, every
+   variant of K8 against K1's;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, with output checks, per-kernel launch counts, and a
    bit-identical second run;
@@ -23,10 +24,21 @@ Phases, each raising (and exiting non-zero) on failure:
    that launches K5 and K6: ms per matvec of the plain formulation, K3,
    K5 and K6 over 50 fed-back matvecs, and each one's drift;
 7. compat path on a seeded 1536 x 2048 frame: rembg_remove_bgr_to_rgba
-   with the full U^2-Net, refine_alpha_portrait from the CNN's alpha and
-   from a synthetic soft-edged alpha with strokes (the float32 solve and
-   the float64 polish must answer, on the card), the full-resolution
-   refine, and the synthetic case at 384 x 512 on the card and the CPU.
+   with the full U^2-Net, refine_alpha_portrait from the CNN's alpha (a
+   meaningless mask from seeded weights: every rung capped at 400
+   iterations) and from a synthetic soft-edged alpha with strokes (the
+   float32 solve and the float64 polish must answer, on the card), the
+   full-resolution refine, and the synthetic case at 384 x 512 on the
+   card and the CPU;
+8. quantize and histogram variants: bench/micro_quantize.run (K4 against
+   K7 at 4 x 2160 x 3840, bit-equal) and bench/micro_hist_nibble.run (every
+   variant of K8 and K1, exact against np.bincount), the paths that launch
+   K7 and K8;
+9. the colour quantizers of compat/color_simplify on photo-like RGBA with
+   a transparent and a dark region: kmeans at 1024 x 1024, the classical
+   batch at 1080 x 1920, the perceptual family at 2160 x 3840; output
+   checks, a second call with the same bytes, warm times with the stage
+   stamps, and card against CPU on a 270 x 480 frame.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -42,15 +54,21 @@ import time
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
+from image_segmenter_tpu_torch.bench import micro_quantize as BENCH_QUANT
+from image_segmenter_tpu_torch.compat import _perceptual as PERCEPTUAL
+from image_segmenter_tpu_torch.compat import color_simplify as CS
 from image_segmenter_tpu_torch.compat import matting_refine as REFINE
 from image_segmenter_tpu_torch.compat import rembg_infer as REMBG
 from image_segmenter_tpu_torch.kernels import _build
+from image_segmenter_tpu_torch.kernels import hist_variants as K8
 from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matting as K6
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
+from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 from image_segmenter_tpu_torch.solvers import matting as MAT
 from image_segmenter_tpu_torch.utils.backend import strict_f32
@@ -62,6 +80,8 @@ MATVEC_SHAPES = [(BATCH, MH, MW), (2, *RAGGED), (1, 33, 130)]
 CARD_VS_CPU = (1, 720, 1280)  # over matting_dim: the AREA shrink path runs
 COMPAT_HW = (1536, 2048)      # the compat path's frame (shrunk to 768 x 1024)
 COMPAT_SMALL_HW = (384, 512)  # card against CPU
+SEEDED_REFINE_CAP = 400       # CG iterations a rung may take on the seeded mask
+QUANT_SMALL_HW = (270, 480)   # the quantizers, card against CPU
 REPS = 10
 INNER = 50                    # fed-back matvecs in the variant bench
 
@@ -85,14 +105,20 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
                      _TPU + "pallas_matvec.py:225"),
     "matvec_recompute": (K6, "LAUNCHES", _CSRC + "matvec_recompute.cu",
                          _TPU + "pallas_matting.py:171"),
+    "quantize_flat": (K7, "LAUNCHES", _CSRC + "quantize_flat.cu",
+                      "bench/micro_quantize.py:63"),
+    "hist_variants": (K8, "LAUNCHES", _CSRC + "hist_variants.cu",
+                      "bench/micro_hist_nibble.py:93"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
 VARIANT_PATH = ("matvec_stack", "matvec_recompute")
+MICRO_PATH = ("quantize_flat", "hist_variants")
 
 
 def zero_counts() -> None:
     for mod, attr, _, _ in KERNELS.values():
         setattr(mod, attr, 0)
+    K8.VARIANT_LAUNCHES.update(dict.fromkeys(K8.VARIANT_LAUNCHES, 0))
 
 
 def read_counts() -> dict:
@@ -390,6 +416,95 @@ def check_quantize(label: str, dev) -> dict:
             "library_ms": None}
 
 
+def check_quantize_flat(label: str, dev) -> dict:
+    """K7 against its plain version and against K4 on the same operands:
+    the bench shape, a ragged one (the byte path) and a small one whose
+    rows are a multiple of 16 (the 16-byte path)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    for b, h, w, k_real in [(BATCH, H4K, W4K, 16), (2, *RAGGED, 11),
+                            (3, 48, 50, 16)]:
+        rgb = torch.randint(0, 256, (b, h, w, 3), generator=g,
+                            dtype=torch.uint8, device=dev)
+        alpha = torch.rand((b, h, w), generator=g, device=dev) > 0.3
+        pal = torch.randint(0, 256, (b, 16, 3), generator=g,
+                            device=dev).to(torch.float32)
+        pal[:, 5] = pal[:, 2]  # exact ties: the first index must win
+        thr = torch.tensor([30.0, 10.0, -1.0, 30.0][:b], device=dev)
+        got = K7.quantize_map_flat(rgb, alpha, pal, k_real, thr)
+        if not torch.equal(got, K7.quantize_map_flat_plain(rgb, alpha, pal,
+                                                           k_real, thr)):
+            fail(f"quantize_flat {(b, h, w)} differs from plain")
+        if not torch.equal(got, KQ.quantize_map(rgb, alpha, pal, k_real, thr)):
+            fail(f"quantize_flat {(b, h, w)} differs from K4")
+        if h == H4K:
+            planes = K7.split_planes(rgb)
+            args = (planes, alpha.reshape(b, h * w), pal, k_real, thr)
+            whole = (rgb, alpha, pal, k_real, thr)
+    ms = median_ms(lambda: K7.quantize_planes(*args))
+    plain_ms = median_ms(lambda: K7.quantize_planes_plain(*args))
+    function_ms = median_ms(lambda: K7.quantize_map_flat(*whole))
+    # K4's work: 3 + 1 bytes read and 3 written per pixel, 9 operations
+    # per pixel and palette entry and 8 for the brightness test
+    px = BATCH * H4K * W4K
+    bd = bound(7 * px + BATCH * 16 * 3 * 4, (9 * 16 + 8) * px)
+    print(f"[kernels] quantize_flat planes (3, 4, {H4K * W4K}) u8 k=16: "
+          f"bit-equal to plain and to K4; kernel {ms:.4f} ms, with the split "
+          f"into planes and the stack back {function_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({label})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None, "function_ms": function_ms}
+
+
+def check_hist_variants(label: str, dev) -> dict:
+    """Every variant of K8 against its plain version, K1 and bincount."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randint(0, 256, (BATCH, H4K * W4K), generator=g,
+                      dtype=torch.uint8, device=dev)
+    x[0, :1 << 20] = 255  # a long run of one value
+    cases = {"main": x, "ragged": x[:2, :RAGGED[0] * RAGGED[1]].contiguous(),
+             "unaligned": x[1, 1:].reshape(1, -1), "one row": x[:1]}
+    offs = (torch.arange(x.shape[0], device=dev) * 256)[:, None]
+
+    def library():
+        return torch.bincount((x.to(torch.int64) + offs).flatten(),
+                              minlength=256 * x.shape[0]).reshape(-1, 256)
+
+    ref_lib = library().to(torch.float32)
+    per_variant = {}
+    for variant in K8.STEPS:
+        for name, xi in cases.items():
+            got = K8.hist_variant(xi, variant)
+            if name != "main":  # the plain one-hot products at full size once
+                if not torch.equal(got, K8.hist_variant_plain(xi, variant)):
+                    fail(f"hist_variants {variant} {name} differs from plain")
+            if not torch.equal(got, KH.hist256(xi)):
+                fail(f"hist_variants {variant} {name} differs from K1")
+        if not torch.equal(K8.hist_variant(x, variant), ref_lib):
+            fail(f"hist_variants {variant} differs from bincount")
+        per_variant[variant] = {
+            "ms": median_ms(lambda: K8.hist_variant(x, variant)),
+            "ms_one_row": median_ms(lambda: K8.hist_variant(x[:1], variant))}
+    if not torch.equal(K8.hist_variant_plain(x, "N3D"), ref_lib):
+        fail("hist_variants: the plain version differs from bincount")
+    plain_ms = median_ms(lambda: K8.hist_variant_plain(x, "N3D"), reps=3)
+    library_ms = median_ms(library)
+    k1_ms = median_ms(lambda: KH.hist256(x))
+    bd = bound(x.numel() + x.shape[0] * 256 * 4, x.numel())
+    bd1 = bound(x.shape[1] + 256 * 4, x.shape[1])
+    for variant, t in per_variant.items():
+        print(f"[kernels] hist_variants {variant} {tuple(x.shape)} u8: exact "
+              f"against plain, K1 and bincount; kernel {t['ms']:.4f} ms (bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}), one row "
+              f"{t['ms_one_row']:.4f} ms (bound {bd1['bound_ms']:.4f} ms) "
+              f"({label})")
+    print(f"[kernels] hist_variants: K1 on the same rows {k1_ms:.4f} ms, plain "
+          f"(N3D) {plain_ms:.4f} ms, bincount {library_ms:.4f} ms ({label})")
+    return {"max_abs_err": 0.0, "ms": per_variant["N3D"]["ms"],
+            "plain_ms": plain_ms, **bd, "library_ms": library_ms,
+            "variants": per_variant}
+
+
 # ---------------------------------------------------------------------------
 # phase 4 and 5: the slice
 # ---------------------------------------------------------------------------
@@ -565,14 +680,18 @@ class RungRecorder:
     """Wraps compat.matting_refine's estimate_alpha_cf to note which rungs
     of the ladder ran and which one answered."""
 
-    def __init__(self):
+    def __init__(self, max_iter=None):
+        """max_iter caps the CG iterations of every rung (cg_kwargs)."""
         self.calls = []
+        self.max_iter = max_iter
         self._inner = REFINE.estimate_alpha_cf
 
     def __call__(self, image01, trimap, **kw):
         name = ("x64" if kw.get("x64") else
                 "eps1e-6" if kw.get("laplacian_kwargs") else "basic")
         self.calls.append(name)
+        if self.max_iter is not None:
+            kw["cg_kwargs"] = {"maxiter": self.max_iter}
         return self._inner(image01, trimap, **kw)
 
     def __enter__(self):
@@ -620,15 +739,17 @@ def run_compat(label: str) -> None:
     cnn_alpha = sess.predict_mask(rgb)
 
     # refine from the CNN's alpha: seeded weights give a meaningless mask,
-    # so any rung of the ladder may answer
-    with RungRecorder() as rec:
+    # so any rung of the ladder may answer, and each is capped (uncapped,
+    # the float64 polish runs thousands of iterations on it)
+    with RungRecorder(max_iter=SEEDED_REFINE_CAP) as rec:
         out, ms = _timed(lambda: REFINE.refine_alpha_portrait(
             rgb, cnn_alpha, user))
     _check_alpha(out, (h, w), "refine from the CNN alpha")
     info = dict(MAT.LAST_SOLVE_INFO)
     answered = rec.calls[-1] if info or rec.calls[-1] != "x64" \
         else "x64 or the morphological refine"
-    print(f"[compat] refine_alpha_portrait from the CNN alpha {h}x{w}: rungs "
+    print(f"[compat] refine_alpha_portrait from the CNN alpha {h}x{w}, rungs "
+          f"capped at {SEEDED_REFINE_CAP} iterations: rungs "
           f"run {rec.calls}, answered by {answered} (f32 iterations "
           f"{info.get('f32_iters')}, polish iterations "
           f"{info.get('polish_iters')}, polish converged "
@@ -700,9 +821,163 @@ def run_compat(label: str) -> None:
         fail("compat refine differs between the card and the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the quantize and histogram micros, the paths that launch K7, K8
+# ---------------------------------------------------------------------------
+
+def run_micros(label: str) -> dict:
+    zero_counts()
+    res = BENCH_QUANT.run("cuda", BATCH, H4K, W4K)
+    print(f"[micros] quantize {BATCH}x{H4K}x{W4K} k=16: K4 on the interleaved "
+          f"frame {res['k4_ms']:.4f} ms; K7 on planes {res['k7_kernel_ms']:.4f}"
+          f" ms, with the split ({res['split_ms']:.4f} ms) and the stack "
+          f"({res['stack_ms']:.4f} ms) {res['k7_function_ms']:.4f} ms; "
+          f"bit-equal: {res['equal']} ({label})")
+    if not res["equal"]:
+        fail("micro_quantize: K7's output differs from K4's")
+    rows = BENCH_HIST.run("cuda", H4K * W4K, BATCH)
+    torch.cuda.synchronize()
+    by_input = {}
+    for row in rows:
+        by_input.setdefault(row["input"], []).append(row)
+        if not row["exact"]:
+            fail(f"micro_hist_nibble: {row['kernel']} on {row['input']} "
+                 "differs from np.bincount")
+    for name, group in by_input.items():
+        times = ", ".join(f"{r['kernel']} {r['ms']:.4f}" for r in group)
+        print(f"[micros] histogram of {name} ({H4K * W4K} a row), all exact, "
+              f"ms: {times} ({label})")
+    launches = {k: v for k, v in read_counts().items() if k in MICRO_PATH}
+    print(f"[micros] kernel launches in the two bench runs: {launches}; per "
+          f"variant {K8.VARIANT_LAUNCHES}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by its bench")
+    if min(K8.VARIANT_LAUNCHES.values()) <= 0:
+        fail("a variant of hist_variants was not launched by its bench")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the colour quantizers
+# ---------------------------------------------------------------------------
+
+def quantizer_frame(h: int, w: int, seed: int, mask: int = 0xFF) -> np.ndarray:
+    """Photo-like RGBA with a transparent corner, a semi-transparent band
+    and a dark patch; `mask` drops low colour bits (fewer unique colours)."""
+    rgb = photo_batch(1, h, w, seed)[0] & np.uint8(mask)
+    rgba = np.dstack([rgb, np.full((h, w), 255, np.uint8)])
+    rgba[: h // 5, : w // 4, 3] = 0
+    rgba[h // 3: h // 3 + h // 10, :, 3] = 100
+    dark = rgba[2 * h // 3: 5 * h // 6, w // 2: 5 * w // 6, :3]
+    dark //= 24
+    return np.ascontiguousarray(rgba)
+
+
+CUSTOM_PALETTE = np.array(
+    [[230, 40, 40], [40, 200, 60], [40, 60, 220], [20, 20, 20],
+     [235, 235, 235], [200, 170, 60], [120, 60, 160], [90, 140, 150]], np.uint8)
+
+
+def quantizer_calls(k16_hw, classical_hw, perceptual_hw):
+    """(name, frame size, colours, call(rgba, device)) per entry point."""
+    def adaptive(name, k):
+        return lambda rgba, dev: CS.simplify_colors_adaptive(
+            rgba, k, True, name, device=dev)
+    calls = [("kmeans", k16_hw, 16, adaptive("kmeans", 16))]
+    calls += [(n, classical_hw, 8, adaptive(n, 8))
+              for n in ("median_cut", "octree", "threshold")]
+    calls += [(n, perceptual_hw, 8, adaptive(n, 8))
+              for n in ("perceptual", "perceptual_fast", "adaptive_distance",
+                        "hsv_clustering")]
+    calls.append(("custom_palette(lab)", perceptual_hw, 8,
+                  lambda rgba, dev: CS.simplify_colors_custom_palette(
+                      rgba, CUSTOM_PALETTE, True, "lab", device=dev)))
+    return calls
+
+
+def check_quantized(name: str, rgba, out, pal, k: int) -> None:
+    if out.dtype != np.uint8 or out.shape != rgba.shape:
+        fail(f"{name}: output is {out.dtype} {out.shape}")
+    if pal.ndim != 2 or pal.shape[1] != 3 or not 2 <= len(pal) <= k:
+        fail(f"{name}: palette shape {pal.shape}")
+    if name != "threshold" and len(pal) != k:
+        fail(f"{name}: {len(pal)} palette entries, expected {k}")
+    if not np.array_equal(out[..., 3], rgba[..., 3]):
+        fail(f"{name}: alpha was not preserved")
+    opaque = out[out[..., 3] > 0][:, :3].astype(np.int64)
+    codes = np.unique((opaque[:, 0] << 16) | (opaque[:, 1] << 8) | opaque[:, 2])
+    p = pal.astype(np.int64)
+    allowed = set(((p[:, 0] << 16) | (p[:, 1] << 8) | p[:, 2]).tolist())
+    if name == "kmeans":
+        allowed.add(0)  # pixels the black filter left out of the fit
+    if not set(codes.tolist()) <= allowed:
+        fail(f"{name}: an opaque colour of the output is not in its palette")
+
+
+def _stamps(name: str) -> dict:
+    if name == "hsv_clustering":
+        return dict(CS.LAST_SOLVE_INFO)
+    if name == "adaptive_distance":
+        return dict(PERCEPTUAL.LAST_SOLVE_INFO)
+    return {}
+
+
+def run_quantizers(label: str) -> None:
+    frames = {}
+
+    def frame(hw, mask=0xFF):
+        if (hw, mask) not in frames:
+            frames[hw, mask] = quantizer_frame(*hw, seed=11, mask=mask)
+        return frames[hw, mask]
+
+    calls = quantizer_calls((1024, 1024), (1080, 1920), (H4K, W4K))
+    for name, hw, k, call in calls:
+        rgba = frame(hw)
+        out, pal = call(rgba, "cuda")  # also the warm-up
+        check_quantized(name, rgba, out, pal, k)
+        (out2, pal2), ms = _timed(lambda: call(rgba, "cuda"))
+        if not (np.array_equal(out, out2) and np.array_equal(pal, pal2)):
+            fail(f"{name}: a second call gives other bytes")
+        info = _stamps(name)
+        times = {key: v for key, v in info.items() if key.startswith("t_")}
+        counts = {key: v for key, v in info.items() if key.startswith("n_")}
+        stages = ""
+        if times:
+            listed = ", ".join(f"{key} {v * 1e3:.3f}" for key, v in times.items())
+            share = sum(times.values()) * 1e3 / ms
+            stages = (f"; stamps {listed} ms, {share * 100:.1f} % of the call; "
+                      f"{counts}")
+            if not 0.9 <= share <= 1.1:
+                fail(f"{name}: the stage stamps sum to {share:.3f} of the "
+                     "call's wall, outside 10 %")
+        print(f"[quantizers] {name} {hw[0]}x{hw[1]} k={k}: ok, second call "
+              f"identical; warm {ms:.3f} ms{stages} ({label})")
+
+    # card against CPU: bytes are not promised (CUDA's logf and pow are not
+    # the CPU's), agreement is
+    sh, sw = QUANT_SMALL_HW
+    small = frame(QUANT_SMALL_HW, mask=0xF8)
+    for name, _, k, call in quantizer_calls(*[QUANT_SMALL_HW] * 3):
+        t0 = time.perf_counter()
+        g_out, g_pal = call(small, "cuda")
+        t1 = time.perf_counter()
+        c_out, c_pal = call(small, "cpu")
+        t2 = time.perf_counter()
+        agree = float((g_out == c_out).all(axis=-1).mean())
+        print(f"[quantizers] {name} {sh}x{sw} card against CPU: pixel "
+              f"agreement {agree:.6f}, palettes identical "
+              f"{bool(np.array_equal(g_pal, c_pal))}; card "
+              f"{(t1 - t0) * 1e3:.1f} ms, CPU {(t2 - t1) * 1e3:.1f} ms "
+              f"({label})")
+        if agree < 0.99:
+            fail(f"{name}: card-vs-CPU agreement {agree} < 0.99")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     label = card_label()
     print(f"[card] {label}")
@@ -722,12 +997,17 @@ def main() -> None:
         "quantize": check_quantize(label, dev),
         "matvec_stack": check_matvec_stack(label, dev),
         "matvec_recompute": check_matvec_recompute(label, dev),
+        "quantize_flat": check_quantize_flat(label, dev),
+        "hist_variants": check_hist_variants(label, dev),
     }
     launches = run_slice(label)
     card_vs_cpu(label)
     launches.update(run_variants(label))
     run_compat(label)
+    launches.update(run_micros(label))
+    run_quantizers(label)
 
+    print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[name], **results[name]}
              for name, (_, _, src, rep) in KERNELS.items()]

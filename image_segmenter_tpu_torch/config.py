@@ -5,6 +5,8 @@ Only the fields this port's code reads are copied here.
 
 - matting max dim 1024 .................. app/processing/matting_refine.py:105
 - trimap thresholds 220 / 20 ............ app/processing/matting_refine.py:14-20
+- kmeans random_state=42, n_init=10 ..... app/processing/color_simplify.py:79-81
+- perceptual_fast max dim 512 / 5000 .... app/processing/color_simplify.py:608,632
 """
 
 from __future__ import annotations
@@ -25,6 +27,16 @@ class Defaults:
     # `matting_dd` switch (float64 emulated in float32 pairs on the TPU) has
     # no counterpart: CUDA has native float64.
     matting_f64_polish: bool = True
+    # Color simplification
+    kmeans_seed: int = 42
+    kmeans_n_init: int = 10
+    perceptual_fast_max_dim: int = 512
+    perceptual_fast_max_samples: int = 5000
+    # Reproduce the reference's bugs instead of fixing them: the kmeans
+    # chained-fancy-index no-op that leaves the output RGB black
+    # (color_simplify.py:90) and perceptual's map of LAB pixels against RGB
+    # centres (color_simplify.py:544).
+    bug_compat: bool = False
 
 
 DEFAULTS = Defaults()

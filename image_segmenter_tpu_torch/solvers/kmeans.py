@@ -1,14 +1,27 @@
-"""Deterministic weighted k-means, batched over images.
+"""Weighted k-means: the deterministic fit of the pipeline, batched over
+images, and the seeded fit with restarts of the colour quantizers.
 
-Counterpart of the main-path subset of image_segmenter_tpu/solvers/
-kmeans.py: `kmeans_fit_det` (stratified greedy-potential seeding + one
-Lloyd run, no PRNG), `assign_labels` and `map_to_centers`.
+Counterpart of image_segmenter_tpu/solvers/kmeans.py: `kmeans_fit_det`
+(stratified greedy-potential seeding + one Lloyd run, no PRNG),
+`kmeans_fit` (greedy kmeans++ from jax.random's stream, `n_init`
+restarts, the best inertia wins), `assign_labels` and `map_to_centers`.
 
-Every function takes a leading batch axis. The JAX package vmaps the
-Lloyd `while_loop` over images, where each image freezes once its own
-shift is within tolerance; the port keeps a per-image active mask and
-reads it on the host once per iteration, so each image runs the
-iterations it runs in JAX.
+`kmeans_fit_det`, `assign_labels` and `map_to_centers` take a leading
+batch axis. The JAX package vmaps the Lloyd `while_loop` over images,
+where each image freezes once its own shift is within tolerance; the port
+keeps a per-image active mask and reads it on the host once per
+iteration, so each image runs the iterations it runs in JAX.
+
+`kmeans_fit` takes one point set, as in the JAX package. Its restarts
+are a leading axis of the centres: all of them advance in lock step over
+one pass of the points, a converged restart is frozen, and the sequential
+path is the same code on one restart at a time, so the two give the same
+bits. Its points are LAB or HSV coordinates or colours weighted by large
+counts, so no sum is exact: every sum over points runs in a fixed order
+(pairwise inside a block of points, then block after block), and the fit
+does not depend on how torch orders a reduction on a device. The host
+reads two flags once per Lloyd iteration (any restart still moving, any
+cluster empty).
 
 Ties follow JAX: `argmin`/`argmax` take the first index, and `lax.top_k`'s
 lowest-index-first order is a stable descending sort.
@@ -21,19 +34,21 @@ which are exact in any order.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Sequence
 
 import torch
 
 from image_segmenter_tpu_torch.ops.scan import cumsum, tree_sum
+from image_segmenter_tpu_torch.utils import prng as PRNG
 from image_segmenter_tpu_torch.utils.backend import true_div
 
 _BLOCK = 1 << 17  # 131072 points per assignment block
 
 
 class KMeansResult(NamedTuple):
-    centers: torch.Tensor  # (B, k, d) float32
-    inertia: torch.Tensor  # (B,) float32
+    centers: torch.Tensor  # (B, k, d) float32; (k, d) from kmeans_fit
+    inertia: torch.Tensor  # (B,) float32; () from kmeans_fit
 
 
 def _pad_points(points: torch.Tensor, weights: torch.Tensor):
@@ -142,6 +157,19 @@ def _lloyd(pts, w, centers, max_iter: int, tol: torch.Tensor) -> KMeansResult:
     return KMeansResult(centers=centers, inertia=inertia)
 
 
+def _tolerance(flatp: torch.Tensor, flatw: torch.Tensor, k: int) -> torch.Tensor:
+    """sklearn's tol = 1e-4 times the mean per-dimension variance of the
+    weighted points, times k (it is held against the total shift^2 of the
+    centres): (B, N, 3), (B, N) -> (B,)."""
+    d = flatp.shape[-1]
+    wsum = torch.clamp_min(tree_sum(flatw), 1.0)
+    mean = tree_sum((flatp * flatw[..., None]).transpose(1, 2)) / wsum[:, None]
+    dev2 = flatp - mean[:, None]
+    var = tree_sum((dev2 * dev2 * flatw[..., None]).transpose(1, 2)) \
+        / wsum[:, None]
+    return 1e-4 * true_div((var[:, 0] + var[:, 1]) + var[:, 2], d) * k
+
+
 def kmeans_fit_det(points: torch.Tensor, weights: torch.Tensor, k: int, *,
                    max_iter: int = 300, candidates: int = 8) -> KMeansResult:
     """Deterministic, sampling-free k-means for the throughput pipeline.
@@ -190,13 +218,205 @@ def kmeans_fit_det(points: torch.Tensor, weights: torch.Tensor, k: int, *,
         min_d2 = torch.gather(nd, 2, best[:, None, None].expand(
             -1, nd.shape[1], 1))[..., 0]
 
-    wsum = torch.clamp_min(tree_sum(flatw), 1.0)
-    mean = tree_sum((flatp * flatw[..., None]).transpose(1, 2)) / wsum[:, None]
-    dev2 = flatp - mean[:, None]
-    var = tree_sum((dev2 * dev2 * flatw[..., None]).transpose(1, 2)) \
-        / wsum[:, None]
-    tol = 1e-4 * true_div((var[:, 0] + var[:, 1]) + var[:, 2], d) * k
-    return _lloyd(pts, w, centers, max_iter, tol)
+    return _lloyd(pts, w, centers, max_iter, _tolerance(flatp, flatw, k))
+
+
+# ---------------------------------------------------------------------------
+# kmeans_fit: kmeans++ seeding from jax.random's stream, restarts, Lloyd
+# ---------------------------------------------------------------------------
+
+# restarts seeded together: bounds the Gumbel draw (restarts, trials, N)
+_INIT_ELEMS = 1 << 26
+
+
+def _d2_points_last(pT: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """`_pairwise_d2` with the point axis last: pT (3, n), c (..., 3) ->
+    (..., n). The same arithmetic term for term (|x|^2 - 2 x.c + |c|^2,
+    the product as three multiply-adds in `_dot3`'s order, written for
+    exactly three columns as every caller has colour points), laid out so
+    that sums over points run along contiguous memory."""
+    if pT.shape[0] != 3 or c.shape[-1] != 3:
+        raise ValueError("_d2_points_last takes three-column points")
+    c0, c1, c2 = (c[..., j, None] for j in range(3))
+    xc = (pT[0] * c0 + pT[1] * c1) + pT[2] * c2
+    x2 = (pT[0] * pT[0] + pT[1] * pT[1]) + pT[2] * pT[2]
+    cc = (c0 * c0 + c1 * c1) + c2 * c2
+    return torch.clamp_min(x2 - 2.0 * xc + cc, 0.0)
+
+
+def _log_weights(x: torch.Tensor) -> torch.Tensor:
+    """log(x) where x > 0, else -inf: the logits of sampling prop. to x."""
+    return torch.where(x > 0, torch.log(torch.clamp_min(x, 1e-30)),
+                       float("-inf"))
+
+
+def _kmeanspp_init(keys: Sequence[PRNG.Key], pts: torch.Tensor,
+                   w: torch.Tensor, k: int, n_local_trials: int) -> torch.Tensor:
+    """Greedy k-means++ over weighted points (sklearn's _kmeans_plusplus)
+    for every key at once: pts (nb, block, 3), w (nb, block) ->
+    (len(keys), k, 3). Each key draws what the JAX package draws from it:
+    the first centre prop. to weight, then `n_local_trials` candidates per
+    step prop. to w * min_d2, of which the one with the least total
+    potential wins."""
+    nb, blk, d = pts.shape
+    r = len(keys)
+    dev = pts.device
+    flatp = pts.reshape(nb * blk, d)
+    flatw = w.reshape(nb * blk)
+    ptsT = pts.transpose(1, 2).contiguous()                    # (nb, 3, block)
+    rows = torch.arange(r, device=dev)
+
+    pairs = [PRNG.split(kk) for kk in keys]
+    keys = [pr[0] for pr in pairs]
+    idx0 = PRNG.categorical_batched([pr[1] for pr in pairs],
+                                    _log_weights(flatw)[None].expand(r, -1))
+    centers = torch.zeros((r, k, d), dtype=torch.float32, device=dev)
+    centers[:, 0] = flatp[idx0]
+    min_d2 = torch.cat([_d2_points_last(ptsT[j], centers[:, 0]) * (w[j] > 0)
+                        for j in range(nb)], dim=1)            # (R, N)
+
+    for i in range(1, k):
+        pairs = [PRNG.split(kk) for kk in keys]
+        keys = [pr[0] for pr in pairs]
+        cand_idx = PRNG.categorical_batched(
+            [pr[1] for pr in pairs], _log_weights(flatw * min_d2),
+            n_local_trials)                                    # (R, T)
+        cands = flatp[cand_idx]                                # (R, T, 3)
+        # The potential each candidate would leave; the winner's clipped
+        # distances are the next min_d2.
+        pots = torch.zeros((r, n_local_trials), dtype=torch.float32,
+                           device=dev)
+        nds = []
+        for j in range(nb):
+            md = min_d2[:, None, j * blk:(j + 1) * blk]
+            nd = torch.minimum(_d2_points_last(ptsT[j], cands), md) \
+                * (w[j] > 0)
+            pots = pots + tree_sum(nd * w[j])
+            nds.append(nd)
+        best = torch.argmin(pots, dim=1)                       # (R,)
+        centers[:, i] = cands[rows, best]
+        min_d2 = torch.cat([nd[rows, best] for nd in nds], dim=1)
+    return centers
+
+
+def _lloyd_restarts(pts, w, centers_all, max_iter: int,
+                    tol: torch.Tensor) -> KMeansResult:
+    """Weighted Lloyd for every restart in lock step: centers_all
+    (R, k, 3). A restart whose shift^2 is within `tol` is frozen (its
+    centres are carried unchanged) while the others finish; no restart's
+    arithmetic depends on another's, so R = 1 on one restart at a time
+    gives the same bits. Returns the restart of least inertia (the first
+    on ties)."""
+    nb, blk, d = pts.shape
+    r, k, _ = centers_all.shape
+    dev = pts.device
+    ptsT = pts.transpose(1, 2).contiguous()                    # (nb, 3, block)
+    bins = torch.arange(k, device=dev)[None, :, None]
+
+    def assign_stats(call):
+        sums = torch.zeros((r, k, d), dtype=torch.float32, device=dev)
+        counts = torch.zeros((r, k), dtype=torch.float32, device=dev)
+        inertia = torch.zeros((r,), dtype=torch.float32, device=dev)
+        for j in range(nb):
+            d2 = _d2_points_last(ptsT[j], call)                # (R, k, block)
+            dmin, lbl = torch.min(d2, dim=1)                   # first minimum
+            onehot = (lbl[:, None, :] == bins).to(torch.float32) * w[j]
+            sums = sums + tree_sum(onehot[:, :, None, :] * ptsT[j])
+            counts = counts + tree_sum(onehot)
+            inertia = inertia + tree_sum(dmin * w[j])
+        return sums, counts, inertia
+
+    def reseed_empty(call, counts):
+        """Move empty clusters onto the current farthest points: the i-th
+        empty slot takes the i-th farthest point."""
+        md = torch.cat([_d2_points_last(ptsT[j], call).amin(dim=1) * (w[j] > 0)
+                        for j in range(nb)], dim=1)            # (R, N)
+        far_pts = pts.reshape(-1, d)[_top_k_indices(md, k)]    # (R, k, 3)
+        empty = counts == 0
+        slot = torch.clamp(torch.cumsum(empty.to(torch.int64), dim=1) - 1,
+                           0, k - 1)
+        return torch.where(empty[..., None], _gather_rows(far_pts, slot), call)
+
+    call = centers_all
+    shift2 = torch.full((r,), float("inf"), device=dev)
+    moving = bool((shift2 > tol).any())
+    it = 0
+    while moving and it < max_iter:
+        active = shift2 > tol
+
+        def advance(new):
+            new = torch.where(active[:, None, None], new, call)
+            diff = new - call
+            return new, tree_sum((diff * diff).reshape(r, -1))
+
+        sums, counts, _ = assign_stats(call)
+        mean = torch.where(counts[..., None] > 0,
+                           sums / torch.clamp_min(counts, 1.0)[..., None], call)
+        new, new_shift2 = advance(mean)
+        # one host read an iteration; the reseed (a sort of every point's
+        # distance) runs only when a cluster is empty, where it changes
+        # the result
+        any_empty, moving = torch.stack(
+            [(counts == 0).any(), (new_shift2 > tol).any()]).tolist()
+        if any_empty:
+            new, new_shift2 = advance(reseed_empty(mean, counts))
+            moving = bool((new_shift2 > tol).any())
+        call, shift2 = new, new_shift2
+        it += 1
+    # Snap near-integer means to the integer (pure-colour clusters), which
+    # a downstream uint8 cast would otherwise truncate.
+    rounded = torch.round(call)
+    call = torch.where(torch.abs(call - rounded) < 1e-3, rounded, call)
+    _, _, inertia = assign_stats(call)
+    best = torch.argmin(inertia)
+    return KMeansResult(centers=call[best], inertia=inertia[best])
+
+
+def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int, *,
+               n_init: int = 10, max_iter: int = 300, seed: int = 42,
+               batch_restarts: bool | None = None) -> KMeansResult:
+    """Fit weighted k-means. points (N, 3) float32, weights (N,) >= 0 ->
+    centers (k, 3), inertia ().
+
+    As sklearn's KMeans at the reference's call sites: tol is 1e-4 times
+    the mean per-dimension variance of the weighted points, the init is
+    greedy kmeans++ with 2 + floor(log(k)) local trials, restart i is
+    seeded with fold_in(key(seed), i) and the least inertia wins.
+
+    batch_restarts: None picks the lock-step Lloyd for n_init >= 4 and
+    one restart after another below; True and False force either. Both
+    give the same result bit for bit.
+    """
+    points = points.to(torch.float32)
+    weights = weights.to(torch.float32)
+    ptsb, wb = _pad_points(points[None], weights[None])
+    pts, w = ptsb[0], wb[0]
+    nb, blk, d = pts.shape
+    tol = _tolerance(pts.reshape(1, nb * blk, d), w.reshape(1, nb * blk), k)[0]
+
+    n_local_trials = 2 + int(math.log(max(k, 2)))  # sklearn's heuristic
+    key = PRNG.key(seed)
+    rkeys = [PRNG.fold_in(key, i) for i in range(n_init)]
+    per = max(1, _INIT_ELEMS // (n_local_trials * nb * blk))
+    centers0_all = torch.cat(
+        [_kmeanspp_init(rkeys[s:s + per], pts, w, k, n_local_trials)
+         for s in range(0, n_init, per)], dim=0)
+
+    if batch_restarts is None:
+        batch_restarts = n_init >= 4
+    if batch_restarts and n_init > 1:
+        return _lloyd_restarts(pts, w, centers0_all, max_iter, tol)
+
+    best = KMeansResult(
+        centers=torch.zeros((k, d), dtype=torch.float32, device=pts.device),
+        inertia=torch.full((), float("inf"), device=pts.device))
+    for i in range(n_init):
+        res = _lloyd_restarts(pts, w, centers0_all[i:i + 1], max_iter, tol)
+        better = res.inertia < best.inertia
+        best = KMeansResult(
+            centers=torch.where(better, res.centers, best.centers),
+            inertia=torch.where(better, res.inertia, best.inertia))
+    return best
 
 
 def assign_labels(points: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

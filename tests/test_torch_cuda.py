@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from image_segmenter_tpu_torch.kernels import hist_variants as K8
 from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matting as K6
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
+from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +175,67 @@ def test_pipeline_on_the_card(cuda):
     c = [c_alpha, c_sharp, *cpu.stages.quantize(x, c_sharp)]
     for gt, ct in zip(g, c):
         assert torch.equal(gt, ct)
+
+
+# the bench shape, a ragged one (the byte path) and rows of a multiple of
+# 16 (the 16-byte path at a small size)
+@pytest.mark.parametrize("bhw,k_real", [((4, 2160, 3840), 16),
+                                        ((2, 37, 53), 11), ((3, 48, 50), 16)])
+def test_quantize_flat_kernel_equals_k4_and_plain(cuda, bhw, k_real):
+    g = _gen(cuda, 7)
+    b, h, w = bhw
+    rgb = torch.randint(0, 256, (b, h, w, 3), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    alpha = torch.rand((b, h, w), generator=g, device=cuda) > 0.3
+    pal = torch.randint(0, 256, (b, 16, 3), generator=g,
+                        device=cuda).to(torch.float32)
+    pal[:, 5] = pal[:, 2]  # exact ties: the first index must win
+    thr = torch.tensor([30.0, 10.0, -1.0, 30.0][:b], device=cuda)
+    before = K7.LAUNCHES
+    got = K7.quantize_map_flat(rgb, alpha, pal, k_real, thr)
+    assert K7.LAUNCHES == before + 1
+    assert torch.equal(got, KQ.quantize_map(rgb, alpha, pal, k_real, thr))
+    assert torch.equal(got, K7.quantize_map_flat_plain(rgb, alpha, pal, k_real,
+                                                       thr))
+    # fractional palette entries: the same float arithmetic, no FMA
+    frac = pal + torch.rand(pal.shape, generator=g, device=cuda)
+    assert torch.equal(K7.quantize_map_flat(rgb, alpha, frac, k_real, thr),
+                       KQ.quantize_map_plain(rgb, alpha, frac, k_real, thr))
+
+
+@pytest.mark.parametrize("shape", [(4, 2160 * 3840), (1, 2160 * 3840),
+                                   (2, 37 * 53), (3, 2 * 32768 + 777), (1, 5)])
+@pytest.mark.parametrize("variant", sorted(K8.STEPS))
+def test_hist_variant_kernel_exact(cuda, variant, shape):
+    x = torch.randint(0, 256, shape, generator=_gen(cuda, 8), device=cuda,
+                      dtype=torch.uint8)
+    x[0, : shape[1] // 3] = 255  # a long run of one value
+    before = K8.LAUNCHES
+    got = K8.hist_variant(x, variant)
+    assert K8.LAUNCHES == before + 1
+    assert torch.equal(got, KH.hist256(x))
+    ref = np.stack([np.bincount(r, minlength=256) for r in x.cpu().numpy()])
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.astype(np.float32))
+    if shape[1] < 1 << 20:
+        assert torch.equal(got, K8.hist_variant_plain(x, variant))
+    off = x[0, 3:].reshape(1, -1)  # unaligned start
+    assert torch.equal(K8.hist_variant(off, variant), KH.hist256(off))
+
+
+def test_prng_and_colour_ops_card_equals_cpu(cuda):
+    """The random stream is integer work: the same bits on the card. The
+    colour conversions take their powers in float64: the same float32."""
+    from image_segmenter_tpu_torch.ops import color as C
+    from image_segmenter_tpu_torch.utils import prng as P
+
+    key = P.key(42)
+    assert torch.equal(P.bits(key, (70001,), cuda).cpu(),
+                       P.bits(key, (70001,), "cpu"))
+    assert torch.equal(P.uniform(key, (4, 1025), cuda).cpu(),
+                       P.uniform(key, (4, 1025), "cpu"))
+    rng = np.random.default_rng(0)
+    u8 = torch.from_numpy(rng.integers(0, 256, (100000, 3), dtype=np.uint8))
+    assert torch.equal(C.rgb_u8_to_hsv_cv(u8.to(cuda)).cpu(),
+                       C.rgb_u8_to_hsv_cv(u8))
+    lab_card, lab_cpu = C.rgb_u8_to_lab(u8.to(cuda)).cpu(), C.rgb_u8_to_lab(u8)
+    assert float((lab_card - lab_cpu).abs().max()) <= 1e-4
