@@ -13,7 +13,12 @@ Phases, each raising (and exiting non-zero) on failure:
    operations over the float32 rate, whichever is larger) and, where one
    PyTorch call computes the same function, that call's time; K5 and K6
    also against K3's output on the same operands, K7 against K4's, every
-   variant of K8 against K1's;
+   variant of K8 against K1's. K3 must give the plain version's bits at
+   every shape; K4 is checked and timed on whole-number palettes
+   (its integer path, the main path's case), on fractional ones and on a
+   batch that mixes the two. For K3 and K4 the time of launches made back
+   to back stands beside the time of one launch between two events, which
+   also holds the host's way to the launch;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, with output checks, per-kernel launch counts, and a
    bit-identical second run;
@@ -31,7 +36,8 @@ Phases, each raising (and exiting non-zero) on failure:
    full-resolution refine, and the synthetic case at 384 x 512 on the
    card and the CPU;
 8. quantize and histogram variants: bench/micro_quantize.run (K4 against
-   K7 at 4 x 2160 x 3840, bit-equal) and bench/micro_hist_nibble.run (every
+   K7 at 4 x 2160 x 3840, bit-equal, and K4 back to back on a whole-number
+   palette, a fractional one and no palette entry at all) and bench/micro_hist_nibble.run (every
    variant of K8 and K1, exact against np.bincount), the paths that launch
    K7 and K8;
 9. the colour quantizers of compat/color_simplify on photo-like RGBA with
@@ -77,12 +83,15 @@ BATCH, H4K, W4K = 4, 2160, 3840
 MH, MW = 576, 1024          # matting size of a 2160 x 3840 frame
 RAGGED = (37, 53)
 MATVEC_SHAPES = [(BATCH, MH, MW), (2, *RAGGED), (1, 33, 130)]
+# K3 only: several strips and several runs with a ragged edge
+MATVEC_STRIP_SHAPES = [(2, 203, 389)]
 CARD_VS_CPU = (1, 720, 1280)  # over matting_dim: the AREA shrink path runs
 COMPAT_HW = (1536, 2048)      # the compat path's frame (shrunk to 768 x 1024)
 COMPAT_SMALL_HW = (384, 512)  # card against CPU
 SEEDED_REFINE_CAP = 400       # CG iterations a rung may take on the seeded mask
 QUANT_SMALL_HW = (270, 480)   # the quantizers, card against CPU
 REPS = 10
+BACK_TO_BACK = 20             # launches between two events, host gap hidden
 INNER = 50                    # fed-back matvecs in the variant bench
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; float32
@@ -147,8 +156,12 @@ def card_label() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = REPS) -> float:
-    """Median of `reps` warm runs, each timed with CUDA events."""
+def median_ms(fn, reps: int = REPS, inner: int = 1) -> float:
+    """Median of `reps` warm runs, each timed with CUDA events. A run is
+    `inner` calls and its time is divided by `inner`: with one call the
+    time holds the host's way from the first event to the launch (some
+    15-20 us through a Python wrapper), with many back to back it does
+    not."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -157,10 +170,11 @@ def median_ms(fn, reps: int = REPS) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return statistics.median(times)
 
 
@@ -282,27 +296,45 @@ def _rel_err(got, ref, scale=None) -> float:
 def check_matvec(label: str, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     err_main = None
-    for b, h, w in MATVEC_SHAPES:
+    for b, h, w in MATVEC_SHAPES + MATVEC_STRIP_SHAPES:
         img, planes, p = _matvec_operands(g, dev, b, h, w)
         got = KMV.matvec_planes(planes, img, p)
         ref = KMV.matvec_planes_plain(planes, img, p)
         e = _rel_err(got, ref)
         if not e < 1e-5:
             fail(f"matvec {(b, h, w)}: max|diff|/max|ref| {e} >= 1e-5")
+        # the kernel keeps the plain version's order of sums and the
+        # library is built without FMA contraction: the same bits
+        if not torch.equal(got, ref):
+            fail(f"matvec {(b, h, w)}: not the plain version's bits")
         if err_main is None:
             err_main = float((got - ref).abs().max())
             args = (planes, img, p)
     ms = median_ms(lambda: KMV.matvec_planes(*args))
+    b2b = median_ms(lambda: KMV.matvec_planes(*args), inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: KMV.matvec_planes_plain(*args))
     # 10 of K2's planes, 3 image planes and p read, one plane written
     px = BATCH * MH * MW
     bd = bound(15 * px * 4, MATVEC_OPS * px)
-    print(f"[kernels] matvec (4, {MH}, {MW}) f32: within 1e-5 of max|ref|, "
-          f"max|diff| {err_main:.3g}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
-          f"{bd['bound_by']} ({label})")
+    # what the card's memory gives a PyTorch kernel that moves as many
+    # bytes: an elementwise add, 5 + 5 planes in and 5 out
+    x, y = torch.rand((2, 5 * px), generator=g, device=dev).unbind(0)
+    z = torch.empty_like(x)
+    stream_ms = median_ms(lambda: torch.add(x, y, out=z), inner=BACK_TO_BACK)
+    print(f"[kernels] matvec (4, {MH}, {MW}) f32: the plain version's bits at "
+          f"every shape, max|diff| {err_main:.3g}; kernel {ms:.4f} ms "
+          f"one launch between events, {b2b:.4f} ms back to back (strip "
+          f"{KMV.STRIP}, runs of {KMV.run_rows(MH, MW, BATCH, _sms(dev))} "
+          f"rows), plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']}; torch.add moving the same bytes {stream_ms:.4f} "
+          f"ms back to back ({label})")
     return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": None}
+            "library_ms": None, "ms_back_to_back": b2b,
+            "stream_ms": stream_ms}
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def check_matvec_stack(label: str, dev) -> dict:
@@ -386,34 +418,63 @@ def check_matvec_recompute(label: str, dev) -> dict:
 
 
 def check_quantize(label: str, dev) -> dict:
+    """K4 on whole-number palettes (the integer path: what the main path
+    passes), on fractional ones (the separately rounded float path) and on
+    a batch that mixes them image by image, each with exact ties."""
     g = torch.Generator(device=dev).manual_seed(4)
     err = 0.0
     for b, h, w, k_real in [(BATCH, H4K, W4K, 16), (2, *RAGGED, 11)]:
         rgb = torch.randint(0, 256, (b, h, w, 3), generator=g,
                             dtype=torch.uint8, device=dev)
         alpha = torch.rand((b, h, w), generator=g, device=dev) > 0.3
-        pal = torch.randint(0, 256, (b, 16, 3), generator=g,
-                            device=dev).to(torch.float32)
-        pal[:, 5] = pal[:, 2]  # exact ties: the first index must win
+        whole = torch.randint(0, 256, (b, 16, 3), generator=g,
+                              device=dev).to(torch.float32)
+        frac = torch.rand((b, 16, 3), generator=g, device=dev) * 255
+        mixed = whole.clone()
+        mixed[1::2] = frac[1::2]
         thr = torch.tensor([30.0, 10.0, -1.0, 30.0][:b], device=dev)
-        got = KQ.quantize_map(rgb, alpha, pal, k_real, thr)
-        ref = KQ.quantize_map_plain(rgb, alpha, pal, k_real, thr)
-        if not torch.equal(got, ref):
-            fail(f"quantize {(b, h, w)} differs from plain")
+        for name, pal in (("whole", whole), ("fractional", frac),
+                          ("mixed", mixed)):
+            pal[:, 5] = pal[:, 2]  # exact ties: the first index must win
+            kinds = KQ.whole_number_palette(pal, k_real).tolist()
+            want = {"whole": [True] * b, "fractional": [False] * b,
+                    "mixed": [i % 2 == 0 for i in range(b)]}[name]
+            if kinds != want:
+                fail(f"quantize {name}: the palette test says {kinds}")
+            ref = KQ.quantize_map_plain(rgb, alpha, pal, k_real, thr)
+            if not torch.equal(KQ.quantize_map(rgb, alpha, pal, k_real, thr),
+                               ref):
+                fail(f"quantize {(b, h, w)} {name} palette: differs from "
+                     "plain")
         if h == H4K:
-            args = (rgb, alpha, pal, k_real, thr)
+            args = (rgb, alpha, whole, k_real, thr)
+            args_frac = (rgb, alpha, frac, k_real, thr)
     ms = median_ms(lambda: KQ.quantize_map(*args))
+    ms_frac = median_ms(lambda: KQ.quantize_map(*args_frac))
+    b2b = median_ms(lambda: KQ.quantize_map(*args), inner=BACK_TO_BACK)
+    b2b_frac = median_ms(lambda: KQ.quantize_map(*args_frac),
+                         inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: KQ.quantize_map_plain(*args))
     # 3 + 1 bytes read and 3 written per pixel, plus the palettes. Per
     # pixel and palette entry 3 subtractions, 3 multiplications, 2
-    # additions and a comparison (9 x 16), plus the brightness test (8)
+    # additions and a comparison (9 x 16), plus the brightness test (8).
+    # That reckoning is the float path's; the integer path does about 3
+    # operations an entry, so for it the bytes alone are the floor
     px = BATCH * H4K * W4K
     bd = bound(7 * px + BATCH * 16 * 3 * 4, (9 * 16 + 8) * px)
-    print(f"[kernels] quantize (4, {H4K}, {W4K}, 3) u8 k=16: bit-exact; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} "
-          f"ms by {bd['bound_by']} ({label})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": None}
+    bytes_ms = bound(7 * px + BATCH * 16 * 3 * 4, 0)["bound_ms"]
+    print(f"[kernels] quantize (4, {H4K}, {W4K}, 3) u8 k=16: bit-exact on "
+          f"whole-number, fractional and mixed palettes; kernel on "
+          f"whole-number palettes {ms:.4f} ms one launch between events, "
+          f"{b2b:.4f} ms back to back; on fractional palettes {ms_frac:.4f} "
+          f"and {b2b_frac:.4f} ms; plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (the float path's "
+          f"count; the bytes alone, the integer path's floor, "
+          f"{bytes_ms:.4f} ms) ({label})")
+    return {"max_abs_err": err, "ms": ms, "ms_fractional": ms_frac,
+            "plain_ms": plain_ms, **bd, "bytes_bound_ms": bytes_ms,
+            "library_ms": None,
+            "ms_back_to_back": b2b, "ms_fractional_back_to_back": b2b_frac}
 
 
 def check_quantize_flat(label: str, dev) -> dict:
@@ -835,6 +896,13 @@ def run_micros(label: str) -> dict:
           f"bit-equal: {res['equal']} ({label})")
     if not res["equal"]:
         fail("micro_quantize: K7's output differs from K4's")
+    print(f"[micros] quantize, K4 on the same frame, ms back to back: a "
+          f"whole-number palette {res['k4_whole_ms']:.4f}, a fractional one "
+          f"{res['k4_fractional_ms']:.4f}, no palette entry "
+          f"{res['k4_k0_ms']:.4f}; the plain version's bytes: "
+          f"{res['paths_exact']} ({label})")
+    if not res["paths_exact"]:
+        fail("micro_quantize: K4 gives other bytes than its plain version")
     rows = BENCH_HIST.run("cuda", H4K * W4K, BATCH)
     torch.cuda.synchronize()
     by_input = {}

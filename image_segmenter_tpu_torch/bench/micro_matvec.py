@@ -12,14 +12,18 @@ Protocol, as in the JAX bench: the output is fed back, q <- q + 1e-6 L q,
 `inner` times, so nothing is dead and the iterate stays bounded; the loop
 is timed as a whole (CUDA events on the card, the host clock on the CPU)
 after one warm-up matvec, and each variant's final q is compared with the
-plain loop's (the drift). The TPU tile sweeps of the JAX bench are TPU
+plain loop's (the drift). At one small image that loop is bound by the host
+(three launches an iteration), so each form is also timed over `LAUNCHES`
+matvecs of one q back to back, median of `REPS`: the kernel's own time.
+The TPU tile sweeps of the JAX bench are TPU
 schedule and have no counterpart.
 
-    python -m image_segmenter_tpu_torch.bench.micro_matvec [cuda|cpu]
+    python -m image_segmenter_tpu_torch.bench.micro_matvec [cuda|cpu] [H W]
 """
 
 from __future__ import annotations
 
+import statistics
 import sys
 import time
 
@@ -30,6 +34,10 @@ from image_segmenter_tpu_torch.kernels import matting as K6
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.utils.backend import resolve_device
+
+
+LAUNCHES = 20   # back to back between two events
+REPS = 10
 
 
 def setup(device, b: int, h: int, w: int, seed: int = 0):
@@ -49,7 +57,7 @@ def setup(device, b: int, h: int, w: int, seed: int = 0):
 
 
 def variants(imgs, planes, stack, static):
-    """name -> matvec(q) for the four forms, on the same operands."""
+    """name -> matvec(q) for the four forms on the same operands."""
     h, w = imgs.shape[2:]
     n, mu, ldl = planes[:, 7], planes[:, 8:11], planes[:, 0:6]
     return {
@@ -83,10 +91,32 @@ def _loop(mv, q: torch.Tensor, inner: int):
     return q, ms / inner
 
 
+def _back_to_back(mv, q: torch.Tensor) -> float:
+    """ms per matvec of `LAUNCHES` calls on one q, median of `REPS`."""
+    times = []
+    for _ in range(REPS):
+        if q.is_cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        else:
+            t0 = time.perf_counter()
+        for _ in range(LAUNCHES):
+            mv(q)
+        if q.is_cuda:
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1) / LAUNCHES)
+        else:
+            times.append((time.perf_counter() - t0) * 1e3 / LAUNCHES)
+    return statistics.median(times)
+
+
 def run(device="cuda", b: int = 4, h: int = 576, w: int = 1024,
         inner: int = 50) -> list:
-    """One row per variant: {"name", "ms_per_matvec", "drift"}; drift is
-    max|q - q_plain| / max|q_plain| after `inner` fed-back matvecs."""
+    """One row per variant: {"name", "ms_per_matvec", "ms_back_to_back",
+    "drift"}; drift is max|q - q_plain| / max|q_plain| after `inner`
+    fed-back matvecs."""
     imgs, ps, planes, stack, static = setup(device, b, h, w)
     rows, ref = [], None
     for name, mv in variants(imgs, planes, stack, static).items():
@@ -94,16 +124,19 @@ def run(device="cuda", b: int = 4, h: int = 576, w: int = 1024,
         if ref is None:
             ref = out
         drift = float((out - ref).abs().max() / (ref.abs().max() + 1e-30))
-        rows.append({"name": name, "ms_per_matvec": ms, "drift": drift})
+        rows.append({"name": name, "ms_per_matvec": ms, "drift": drift,
+                     "ms_back_to_back": _back_to_back(mv, ps)})
     return rows
 
 
 def main(argv) -> None:
     device = argv[1] if len(argv) > 1 else "cuda"
+    h, w = (int(v) for v in argv[2:4]) if len(argv) > 3 else (576, 1024)
     for b in (1, 4):
-        for row in run(device, b=b):
-            print(f"{row['name']:24s} b={b} {row['ms_per_matvec']:8.4f} "
-                  f"ms/matvec  50-iter drift vs plain {row['drift']:.2e}",
+        for row in run(device, b=b, h=h, w=w):
+            print(f"{row['name']:24s} {b}x{h}x{w} {row['ms_per_matvec']:8.4f} "
+                  f"ms/matvec fed back, {row['ms_back_to_back']:8.4f} back to "
+                  f"back  50-iter drift vs plain {row['drift']:.2e}",
                   flush=True)
 
 

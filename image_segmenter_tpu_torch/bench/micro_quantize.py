@@ -11,6 +11,13 @@ frame into planes and the stack back, the layout cost the study is about.
 The outputs must be bit-equal. The TPU bench's count of relayout copies in
 the compiled HLO has no counterpart and is dropped.
 
+K4 is also timed on the same frame with the whole-number palette (its
+integer path), with a fractional one (its separately rounded float path,
+by the kernel's own choice) and with no palette entry at all (k_real 0:
+what the loads, the brightness test and the stores take). Each must give
+the plain version's bytes; times are of `INNER` launches back to back, so
+that the host's gap between two launches is not in them.
+
 Inputs follow the TPU bench: numpy's default_rng(5), uniform colours, 80 %
 opaque alpha, one random 16-colour palette for every image, brightness
 threshold 40. On a CPU tensor each wrapper takes its plain version, so a
@@ -33,6 +40,7 @@ from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 from image_segmenter_tpu_torch.utils.backend import resolve_device
 
 K, THRESHOLD = 16, 40.0
+INNER = 10   # launches between two events in the K4 path timings
 
 
 def setup(device, b: int, h: int, w: int, seed: int = 5):
@@ -47,9 +55,9 @@ def setup(device, b: int, h: int, w: int, seed: int = 5):
     return rgb, alpha, centers, thr
 
 
-def median_ms(fn, on_card: bool, reps: int) -> float:
-    """Median of `reps` warm runs: CUDA events on the card, else the host
-    clock."""
+def median_ms(fn, on_card: bool, reps: int, inner: int = 1) -> float:
+    """Median of `reps` warm runs of `inner` calls each, per call: CUDA
+    events on the card, else the host clock."""
     fn()
     times = []
     for _ in range(reps):
@@ -57,22 +65,44 @@ def median_ms(fn, on_card: bool, reps: int) -> float:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            fn()
+            for _ in range(inner):
+                fn()
             e1.record()
             e1.synchronize()
-            times.append(e0.elapsed_time(e1))
+            times.append(e0.elapsed_time(e1) / inner)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(inner):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(times)
+
+
+def k4_paths(rgb, alpha, centers, thr, reps: int = 10) -> dict:
+    """{"k4_whole_ms", "k4_fractional_ms", "k4_k0_ms", "paths_exact"}: K4
+    on one frame by palette kind, `INNER` launches back to back, each held
+    to the plain version's bytes."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    frac = (centers.cpu() + torch.rand(centers.shape, generator=g) * 0.9
+            ).clamp(0.0, 255.0).to(centers.device)
+    cases = {"whole": (centers, K), "fractional": (frac, K),
+             "k0": (centers, 0)}
+    res, exact = {}, True
+    for name, (pal, k_real) in cases.items():
+        def call():
+            return K4.quantize_map(rgb, alpha, pal, k_real, thr)
+        exact = exact and bool(torch.equal(
+            call(), K4.quantize_map_plain(rgb, alpha, pal, k_real, thr)))
+        res[f"k4_{name}_ms"] = median_ms(call, rgb.is_cuda, reps, INNER)
+    res["paths_exact"] = exact
+    return res
 
 
 def run(device="cuda", b: int = 4, h: int = 2160, w: int = 3840,
         reps: int = 10) -> dict:
     """{"k4_ms", "k7_kernel_ms", "k7_function_ms", "split_ms", "stack_ms",
-    "equal", "k4_launches", "k7_launches"}: times are medians of `reps`;
-    `equal` says whether K7's output has K4's bytes."""
+    "equal", "k4_launches", "k7_launches"} and `k4_paths`' keys: times are
+    medians of `reps`; `equal` says whether K7's output has K4's bytes."""
     rgb, alpha, centers, thr = setup(device, b, h, w)
     on_card = rgb.is_cuda
     n4, n7 = K4.LAUNCHES, K7.LAUNCHES
@@ -98,6 +128,7 @@ def run(device="cuda", b: int = 4, h: int = 2160, w: int = 3840,
                               on_card, reps),
         "equal": equal,
     }
+    res.update(k4_paths(rgb, alpha, centers, thr, reps))
     res["k4_launches"] = K4.LAUNCHES - n4
     res["k7_launches"] = K7.LAUNCHES - n7
     return res
@@ -111,6 +142,8 @@ def main(argv) -> None:
         print(f"[micro_quantize] {key}: {val}", flush=True)
     if not res["equal"]:
         raise SystemExit("K7's output differs from K4's")
+    if not res["paths_exact"]:
+        raise SystemExit("K4 gives other bytes than its plain version")
 
 
 if __name__ == "__main__":

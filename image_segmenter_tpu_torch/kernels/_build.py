@@ -41,8 +41,8 @@ SIGNATURES = {
     # (img f32 (B, 3, H, W), B, H, W, eps, out f32 (B, 12, H, W), stream)
     "iseg_precompute": [_P, _I32, _I32, _I32, _F32, _P, _P],
     # (planes f32 (B, 12, H, W), img f32 (B, 3, H, W), p f32 (B, H, W),
-    #  B, H, W, out f32 (B, H, W), stream)
-    "iseg_matvec": [_P, _P, _P, _I32, _I32, _I32, _P, _P],
+    #  B, H, W, rows a run, out f32 (B, H, W), stream)
+    "iseg_matvec": [_P, _P, _P, _I32, _I32, _I32, _I32, _P, _P],
     # (rgb u8 (B, H*W, 3), fit u8 (B, H*W), centers f32 (B, k_max, 3),
     #  thr f32 (B,), B, H*W, k_max, k_real, out u8 (B, H*W, 3), stream)
     "iseg_quantize": [_P, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P],

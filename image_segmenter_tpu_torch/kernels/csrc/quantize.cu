@@ -6,23 +6,43 @@
 // Per pixel: squared distance (r-cr)^2 + (g-cg)^2 + (b-cb)^2 to each of
 // the first k_real palette entries, first minimum by strict <, and the
 // winning colour where alpha > 0 and (r+g+b) * (1/3) > thr, else 0.
-// Every multiply and add is an explicitly rounded intrinsic, so nvcc
-// contracts nothing into an FMA and the result is bit-exact against the
-// plain PyTorch version for any float palette.
+// Bit-exact against the plain PyTorch version for any float32 palette.
 //
-// Bound on this card: device memory, 3 + 1 bytes read and 3 written per
-// pixel (4 x 8.29 MP on the main path, about 232 MB, some 70 us of HBM
-// time), against 16 x 3 multiply-adds per pixel from a palette held in
-// shared memory.
+// Bound on this card: the function moves 3 + 1 bytes in and 3 out per
+// pixel (232 MB at 4 x 2160 x 3840, 69 us of HBM time). With an arbitrary
+// float palette every subtraction, product and sum must round where the
+// plain version rounds, so none may fuse: about 11 instructions a pixel
+// and palette entry, and the instructions, not the bytes, set the time
+// (0.27 ms at k = 16). On a whole-number palette the integer path below
+// needs three, and the kernel comes down to what its loads and stores
+// take (0.09 ms with no palette entry at all, 0.11 ms at k = 16).
 //
-// Design: the interleaved (B, H*W, 3) frame is read as it lies (the TPU
-// kernel split it into planes for its vector layout; that copy is not
-// made here). One thread per pixel in a grid-stride loop; neighbouring
-// threads read neighbouring 3-byte pixels, so a warp's loads coalesce into
-// a few 32-byte sectors. The block stages its image's palette and
-// threshold in shared memory.
+// Design: two paths in one launch, chosen per image by the block as it
+// stages its palette in shared memory.
+// - Whole-number palette (the main path: k-means centres rounded to u8).
+//   With u8 pixels and centres that are integers in [0, 255] every
+//   difference, product and sum is an integer below 3 * 255^2 < 2^24:
+//   exact in float32 in any order, fused or not, and equal to the same
+//   sum in int32. So the distance is taken in integers: the pixel packed
+//   as four u8, s = dp4a(pixel, centre) = p . c, and one multiply-add
+//   key = ck - 512 s with ck = (|c|^2 << 8) | k. The key is
+//   (distance - |p|^2) * 256 + k, so its minimum over k is the smallest
+//   distance and, among equals, the lowest index: what strict < in index
+//   order gives. Three instructions an entry and pixel.
+// - Any other palette: the separately rounded intrinsics, in the plain
+//   version's order, carrying the winner's index instead of its three
+//   channels.
+// Either way the winner's colour is looked up once after the loop, from a
+// table already taken through the kernel's casts (float -> int32
+// truncates, int32 -> u8 wraps: the Pallas kernel's).
+// The interleaved (B, H*W, 3) frame is read as it lies. Where H*W is a
+// multiple of 4 and the pointers are word-aligned a thread takes 4 pixels
+// as three 32-bit words of RGB and one of alpha, shares each palette read
+// between them and writes three words; any other size goes pixel by pixel
+// through the same two paths.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -30,50 +50,164 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxK = 256;
+constexpr int kBlocksPerSm = 16;  // grid-stride blocks a launch asks for
 
+struct Palette {
+  float f[kMaxK * 3];      // as given: the float paths
+  int2 wk[kMaxK];          // whole-number: {r | g << 8 | b << 16, ck}
+  uint32_t out[kMaxK + 1]; // colour of winner k as r | g << 8 | b << 16; 0
+                           // from k_use on ("no winner" is index kMaxK)
+};
+
+// Index of the nearest entry for P pixels, each packed r | g << 8 | b << 16
+// (the top byte is ignored).
+template <int P>
+__device__ __forceinline__ void nearest_dp4a(const Palette& pal, int k_use,
+                                             const uint32_t (&pix)[P],
+                                             int (&idx)[P]) {
+  int best[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) best[j] = INT_MAX;
+#pragma unroll 4
+  for (int k = 0; k < k_use; ++k) {
+    const int2 e = pal.wk[k];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int s = (int)__dp4a(pix[j], (uint32_t)e.x, 0u);
+      best[j] = min(best[j], e.y - 512 * s);
+    }
+  }
+  // INT_MAX (no entry) gives 255, which is >= k_use only when k_use == 0
+#pragma unroll
+  for (int j = 0; j < P; ++j) idx[j] = best[j] & 0xFF;
+}
+
+template <int P>
+__device__ __forceinline__ void nearest_float(const Palette& pal, int k_use,
+                                              const uint32_t (&pix)[P],
+                                              int (&idx)[P]) {
+  float r[P], g[P], bl[P], best[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    r[j] = (float)(pix[j] & 0xFF);
+    g[j] = (float)((pix[j] >> 8) & 0xFF);
+    bl[j] = (float)((pix[j] >> 16) & 0xFF);
+    best[j] = INFINITY;
+    idx[j] = kMaxK;
+  }
+#pragma unroll 2
+  for (int k = 0; k < k_use; ++k) {
+    const float cr = pal.f[3 * k], cg = pal.f[3 * k + 1], cb = pal.f[3 * k + 2];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float dr = __fsub_rn(r[j], cr);
+      const float dg = __fsub_rn(g[j], cg);
+      const float db = __fsub_rn(bl[j], cb);
+      const float d = __fadd_rn(
+          __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dg, dg)), __fmul_rn(db, db));
+      if (d < best[j]) {
+        best[j] = d;
+        idx[j] = k;
+      }
+    }
+  }
+}
+
+// The output colour of P pixels: the winner's where the pixel is opaque
+// and bright enough, else 0.
+template <int P>
+__device__ __forceinline__ void map_pixels(const Palette& pal, int k_use,
+                                           bool whole, float thr,
+                                           const uint32_t (&pix)[P],
+                                           const bool (&opaque)[P],
+                                           uint32_t (&col)[P]) {
+  int idx[P];
+  if (whole) nearest_dp4a<P>(pal, k_use, pix, idx);
+  else nearest_float<P>(pal, k_use, pix, idx);
+  const float third = 1.0f / 3.0f;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    // r + g + b is exact in float32 in any order, so one integer sum
+    const float sum = (float)__dp4a(pix[j], 0x00010101u, 0u);
+    const bool fit = opaque[j] && __fmul_rn(sum, third) > thr;
+    col[j] = fit ? pal.out[idx[j]] : 0u;
+  }
+}
+
+template <bool WORDS>
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const uint8_t* __restrict__ rgb,
                 const uint8_t* __restrict__ alpha,
                 const float* __restrict__ centers,
                 const float* __restrict__ thr, int64_t hw, int k_max,
                 int k_use, uint8_t* __restrict__ out) {
-  __shared__ float pal[kMaxK * 3];
+  __shared__ Palette pal;
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < k_use * 3; i += kThreads)
-    pal[i] = centers[(int64_t)b * k_max * 3 + i];
+  const int tid = threadIdx.x;
+
+  // stage the image's palette; is every entry a whole number in [0, 255]?
+  bool whole = true;
+  for (int i = tid; i < k_use * 3; i += kThreads) {
+    const float v = centers[(int64_t)b * k_max * 3 + i];
+    pal.f[i] = v;
+    whole = whole && v >= 0.f && v <= 255.f && v == floorf(v);
+  }
+  whole = __syncthreads_and(whole) != 0;   // uniform over the block
+  for (int k = tid; k <= kMaxK; k += kThreads) {
+    uint32_t c = 0u;
+    if (k < k_use) {
+      const float cr = pal.f[3 * k], cg = pal.f[3 * k + 1], cb = pal.f[3 * k + 2];
+      // float -> int32 truncates, int32 -> u8 wraps: the Pallas kernel's casts
+      c = (uint32_t)(uint8_t)(int)cr | ((uint32_t)(uint8_t)(int)cg << 8)
+          | ((uint32_t)(uint8_t)(int)cb << 16);
+      if (whole) {
+        const int r = (int)cr, g = (int)cg, bl = (int)cb;
+        pal.wk[k] = make_int2(r | (g << 8) | (bl << 16),
+                              ((r * r + g * g + bl * bl) << 8) | k);
+      }
+    }
+    pal.out[k] = c;
+  }
   __syncthreads();
+
   const float t = thr[b];
-  const float third = 1.0f / 3.0f;
   const uint8_t* src = rgb + (int64_t)b * hw * 3;
   const uint8_t* a = alpha + (int64_t)b * hw;
   uint8_t* dst = out + (int64_t)b * hw * 3;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + tid;
+  const int64_t step = (int64_t)gridDim.x * kThreads;
 
-  for (int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x; p < hw;
-       p += (int64_t)gridDim.x * kThreads) {
-    const float r = (float)src[3 * p];
-    const float g = (float)src[3 * p + 1];
-    const float bl = (float)src[3 * p + 2];
-    float best_d = INFINITY, br = 0.f, bg = 0.f, bb = 0.f;
-    for (int k = 0; k < k_use; ++k) {
-      const float cr = pal[3 * k], cg = pal[3 * k + 1], cb = pal[3 * k + 2];
-      const float dr = __fsub_rn(r, cr);
-      const float dg = __fsub_rn(g, cg);
-      const float db = __fsub_rn(bl, cb);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dg, dg)),
-                                __fmul_rn(db, db));
-      if (d < best_d) {
-        best_d = d;
-        br = cr;
-        bg = cg;
-        bb = cb;
-      }
+  if (WORDS) {
+    // 4 pixels a thread: w0 = r0 g0 b0 r1, w1 = g1 b1 r2 g2, w2 = b2 r3 g3 b3
+    const uint32_t* src32 = reinterpret_cast<const uint32_t*>(src);
+    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
+    uint32_t* dst32 = reinterpret_cast<uint32_t*>(dst);
+    for (int64_t q = first; q < hw / 4; q += step) {
+      const uint32_t w0 = src32[3 * q], w1 = src32[3 * q + 1],
+                     w2 = src32[3 * q + 2];
+      const uint32_t aw = a32[q];
+      const uint32_t pix[4] = {w0, __byte_perm(w0, w1, 0x0543),
+                               __byte_perm(w1, w2, 0x0432), w2 >> 8};
+      const bool opaque[4] = {(aw & 0xFFu) != 0, (aw & 0xFF00u) != 0,
+                              (aw & 0xFF0000u) != 0, (aw & 0xFF000000u) != 0};
+      uint32_t col[4];
+      map_pixels<4>(pal, k_use, whole, t, pix, opaque, col);
+      dst32[3 * q] = __byte_perm(col[0], col[1], 0x4210);
+      dst32[3 * q + 1] = __byte_perm(col[1], col[2], 0x5421);
+      dst32[3 * q + 2] = __byte_perm(col[2], col[3], 0x6542);
     }
-    const float bright = __fmul_rn(__fadd_rn(__fadd_rn(r, g), bl), third);
-    const bool fit = a[p] > 0 && bright > t;
-    // float -> int32 truncates, int32 -> u8 wraps: the Pallas kernel's casts
-    dst[3 * p] = fit ? (uint8_t)(int)br : 0;
-    dst[3 * p + 1] = fit ? (uint8_t)(int)bg : 0;
-    dst[3 * p + 2] = fit ? (uint8_t)(int)bb : 0;
+  } else {
+    for (int64_t p = first; p < hw; p += step) {
+      const uint32_t pix[1] = {(uint32_t)src[3 * p]
+                               | ((uint32_t)src[3 * p + 1] << 8)
+                               | ((uint32_t)src[3 * p + 2] << 16)};
+      const bool opaque[1] = {a[p] != 0};
+      uint32_t col[1];
+      map_pixels<1>(pal, k_use, whole, t, pix, opaque, col);
+      dst[3 * p] = (uint8_t)col[0];
+      dst[3 * p + 1] = (uint8_t)(col[0] >> 8);
+      dst[3 * p + 2] = (uint8_t)(col[0] >> 16);
+    }
   }
 }
 
@@ -87,13 +221,30 @@ extern "C" int iseg_quantize(const void* rgb, const void* alpha,
   if (k_use < 0) k_use = 0;
   if (k_use > kMaxK || batch > 65535) return (int)cudaErrorInvalidValue;
   if (hw > 0 && batch > 0) {
-    int64_t blocks = (hw + kThreads * 4 - 1) / (kThreads * 4);
-    if (blocks > 4096) blocks = 4096;
+    int dev = 0, sms = 0;   // of the current device, asked every launch
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const bool words =
+        hw % 4 == 0
+        && ((uintptr_t)rgb | (uintptr_t)alpha | (uintptr_t)out) % 4 == 0;
+    const int64_t items = words ? hw / 4 : hw;
+    int64_t blocks = (items + kThreads - 1) / kThreads;
+    const int64_t cap = (int64_t)(sms * kBlocksPerSm + batch - 1) / batch;
+    if (blocks > cap) blocks = cap;
     dim3 grid((unsigned)blocks, (unsigned)batch);
-    quantize_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(rgb), static_cast<const uint8_t*>(alpha),
-        static_cast<const float*>(centers), static_cast<const float*>(thr), hw,
-        k_max, k_use, static_cast<uint8_t*>(out));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (words)
+      quantize_kernel<true><<<grid, kThreads, 0, s>>>(
+          static_cast<const uint8_t*>(rgb), static_cast<const uint8_t*>(alpha),
+          static_cast<const float*>(centers), static_cast<const float*>(thr),
+          hw, k_max, k_use, static_cast<uint8_t*>(out));
+    else
+      quantize_kernel<false><<<grid, kThreads, 0, s>>>(
+          static_cast<const uint8_t*>(rgb), static_cast<const uint8_t*>(alpha),
+          static_cast<const float*>(centers), static_cast<const float*>(thr),
+          hw, k_max, k_use, static_cast<uint8_t*>(out));
   }
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,19 @@ It reads K2's (B, 12, H, W) planes, the (B, 3, H, W) image and p
 TPU kernel needed those for its tile memory; a CUDA block loads its own
 halo.
 
+What bounds K3 on the H100 is device memory (15 planes moved a call, 42
+us at 4 x 576 x 1024) with the instruction slots close behind (about 370
+instructions a pixel with `--fmad=false`). So csrc/matvec.cu makes each
+block walk down a strip of `STRIP` output columns, one row of windows a
+step: rows of the operands arrive in shared-memory rings through
+`cp.async`, two rows ahead of the arithmetic, each read once per strip
+(aligned 16-byte pieces where W is a multiple of 4), and the sums over
+columns are carried down the strip in registers. The grid is strips x row
+runs x images; `run_rows` chooses the run so that the card holds
+no more than `BLOCKS_PER_SM` blocks for each SM, one wave (a run re-reads
+4 rows at its top, so longer is cheaper and shorter fills the card). The sums keep the plain
+version's order, so the kernel matches it bit for bit.
+
 `matvec_planes` routes by device: a CUDA tensor launches csrc/matvec.cu,
 a CPU tensor takes `matvec_planes_plain`, the JAX package's
 solvers/matting._matvec (packed factors, radius 1, f32) in torch. The two
@@ -27,6 +40,8 @@ on the whole padded stack.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +61,33 @@ HALO = 2      # member box needs windows at +-1, windows need p at +-1
 # so that stacks built by either package are interchangeable.
 _ROW_TILE = 32
 _ROW_EXTRA = 8
+
+STRIP = 128          # output columns a block of K3 walks down (SW there)
+# Blocks of K3 an SM of the H100 holds at once (160 threads of 110
+# registers): a grid of at most this many for each SM runs as one wave, and
+# a few blocks more cost a second one
+BLOCKS_PER_SM = 3
+MIN_RUN_ROWS = 8     # a run re-reads 4 rows: never shorter than this
+
+
+def run_rows(h: int, w: int, b: int, sm_count: int) -> int:
+    """Output rows a block of K3 covers: [0, H) is cut into equal runs,
+    as many as keep the grid within `BLOCKS_PER_SM` blocks for each of the
+    card's `sm_count` SMs over `b` images of ceil(w / STRIP) strips."""
+    strips = -(-w // STRIP)
+    runs = max(1, BLOCKS_PER_SM * sm_count // (strips * b))
+    return min(h, max(MIN_RUN_ROWS, -(-h // runs)))
+
+
+def run_bounds(h: int, rows: int) -> list:
+    """The (first, past-last) output rows of the runs K3's grid makes of
+    an image of `h` rows."""
+    return [(r0, min(r0 + rows, h)) for r0 in range(0, h, rows)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def matvec_planes(planes: torch.Tensor, img: torch.Tensor,
@@ -68,10 +110,15 @@ def matvec_planes(planes: torch.Tensor, img: torch.Tensor,
             and p.is_contiguous()):
         raise ValueError("matvec_planes: operands must be contiguous")
     out = torch.empty_like(p)
+    if out.numel() == 0:
+        return out
     lib = _build.library()
     stream = torch.cuda.current_stream(p.device).cuda_stream
+    index = p.device.index if p.device.index is not None \
+        else torch.cuda.current_device()
+    rows = run_rows(h, w, b, _sm_count(index))
     rc = lib.iseg_matvec(planes.data_ptr(), img.data_ptr(), p.data_ptr(),
-                         b, h, w, out.data_ptr(), stream)
+                         b, h, w, rows, out.data_ptr(), stream)
     _build.check(rc, "matvec")
     LAUNCHES += 1
     return out

@@ -11,6 +11,21 @@ round differently at sums such as r+g+b = 90 against thr = 30.
 The CUDA kernel reads the interleaved (B, H, W, 3) frame directly; the
 TPU kernel's split into planes was a layout cost of that chip.
 
+What bounds K4 on the H100 is the instructions it executes, not the 7
+bytes a pixel it moves: held bit for bit to a plain version that rounds
+every step, a float palette allows no fused multiply-add, about 11
+instructions a pixel and entry. But the main path's palettes are k-means
+centres rounded to u8, and with u8 pixels and whole-number centres in
+[0, 255] every intermediate is an integer below 2^24, exact in any order.
+So each block of csrc/quantize.cu tests its image's palette as it stages
+it (`whole_number_palette` is that test's twin) and takes one of two
+paths: integer keys `((|c|^2 << 8) | k) - 512 (p . c)` from one `dp4a`
+and one multiply-add, minimised (three instructions an entry; the minimum
+is the nearest entry and, among equals, the lowest index), or the
+separately rounded float32 arithmetic for any other palette. Both carry
+the winner's index and look its colour up once. A thread takes 4 pixels
+as whole words where H*W is a multiple of 4.
+
 `quantize_map` routes by device: a CUDA tensor launches csrc/quantize.cu,
 a CPU tensor takes `quantize_map_plain`. Both are bit-exact to the same
 semantics.
@@ -29,6 +44,15 @@ LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
 # float32(1/3): a product of two float32 values rounds the same whether the
 # scalar op runs in float32 or in double
 _THIRD = float(np.float32(1.0 / 3.0))
+
+
+def whole_number_palette(centers_f32: torch.Tensor, k_real: int) -> torch.Tensor:
+    """(B,) bool: the kernel's per-image test. True where each of the first
+    k_real entries is a whole number in [0, 255], so that every distance to
+    a u8 pixel is an integer below 2^24 and the integer path is exact."""
+    c = centers_f32[:, :max(0, min(centers_f32.shape[1], int(k_real)))]
+    ok = (c >= 0.0) & (c <= 255.0) & (c == torch.floor(c))
+    return ok.flatten(1).all(dim=1)
 
 
 def quantize_map(rgb_u8: torch.Tensor, alpha: torch.Tensor,

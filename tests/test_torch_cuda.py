@@ -61,16 +61,30 @@ def test_precompute_kernel_matches_plain(cuda, shape):
     assert float(torch.minimum(err, rel).max()) < 1e-4
 
 
-@pytest.mark.parametrize("bhw", [(2, 37, 53), (1, 33, 130), (3, 64, 96)])
+# (2, 203, 389) spans several strips and several runs with a ragged edge;
+# (1, 576, 1024) is one image of the main path (aligned 16-byte pieces)
+@pytest.mark.parametrize("bhw", [(2, 37, 53), (1, 33, 130), (3, 64, 96),
+                                 (2, 203, 389), (1, 576, 1024), (1, 1, 1)])
 def test_matvec_kernel_matches_plain(cuda, bhw):
+    """Within 1e-5 of max|ref|, and in fact the same bits: the kernel keeps
+    the plain version's order of sums and is built without FMA contraction."""
     g = _gen(cuda, 3)
     b, h, w = bhw
     img = torch.rand((b, 3, h, w), generator=g, device=cuda)
     planes = KP.precompute_planes(img, 1e-7)
     p = torch.randn((b, h, w), generator=g, device=cuda)
+    before = KMV.LAUNCHES
     got = KMV.matvec_planes(planes, img, p)
+    assert KMV.LAUNCHES == before + 1
     ref = KMV.matvec_planes_plain(planes, img, p)
-    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert float((got - ref).abs().max() / (ref.abs().max() + 1e-9)) < 1e-5
+    assert torch.equal(got, ref)
+    # an operand that does not start on a 16-byte boundary: 4-byte pieces
+    if w % 4 == 0 and b * h * w > 1:
+        flat = torch.empty(b * h * w + 1, device=cuda)
+        off = flat[1:].view(b, h, w).copy_(p)
+        assert off.data_ptr() % 16 != 0
+        assert torch.equal(KMV.matvec_planes(planes, img, off), ref)
 
 
 def _matvec_operands(cuda, bhw, seed):
@@ -126,18 +140,61 @@ def test_matvec_recompute_kernel_matches_plain(cuda, bhw):
     assert torch.equal(one, got[0])
 
 
-@pytest.mark.parametrize("bhw,k_real", [((2, 37, 53), 11), ((1, 128, 200), 16)])
-def test_quantize_kernel_bit_exact(cuda, bhw, k_real):
+# (2, 37, 53): H*W odd, the pixel-by-pixel path; the others take 4 pixels a
+# thread. k_real 1 and 11 leave palette rows unused.
+@pytest.mark.parametrize("palette", ["whole", "fractional", "mixed"])
+@pytest.mark.parametrize("bhw,k_real", [((2, 37, 53), 11), ((1, 128, 200), 16),
+                                        ((4, 48, 50), 1), ((4, 48, 50), 11),
+                                        ((4, 48, 50), 16), ((2, 16, 16), 0)])
+def test_quantize_kernel_bit_exact(cuda, bhw, k_real, palette):
+    """Whole-number palettes (the integer path), fractional ones (the
+    separately rounded float path) and batches that mix the two image by
+    image, with exact ties: the plain version's bytes."""
     g = _gen(cuda, 4)
+    b = bhw[0]
     rgb = torch.randint(0, 256, (*bhw, 3), generator=g, device=cuda,
                         dtype=torch.uint8)
     alpha = torch.rand(bhw, generator=g, device=cuda) > 0.3
-    pal = torch.randint(0, 256, (bhw[0], 16, 3), generator=g,
+    pal = torch.randint(0, 256, (b, 16, 3), generator=g,
                         device=cuda).float()
+    frac = torch.rand((b, 16, 3), generator=g, device=cuda) * 255
+    if palette == "fractional":
+        pal = frac
+    elif palette == "mixed":
+        pal[1::2] = frac[1::2]
     pal[:, 4] = pal[:, 1]
-    thr = torch.full((bhw[0],), 30.0, device=cuda)
-    got = KQ.quantize_map(rgb, alpha, pal, k_real, thr)
-    assert torch.equal(got, KQ.quantize_map_plain(rgb, alpha, pal, k_real, thr))
+    rgb[:, 0, 0] = pal[:, 1].to(torch.uint8)
+    thr = torch.tensor([30.0, 10.0, -1.0, 30.0][:b], device=cuda)
+    whole = KQ.whole_number_palette(pal, k_real)
+    if k_real > 0:
+        assert whole.tolist() == [palette == "whole"
+                                  or (palette == "mixed" and i % 2 == 0)
+                                  for i in range(b)]
+    ref = KQ.quantize_map_plain(rgb, alpha, pal, k_real, thr)
+    before = KQ.LAUNCHES
+    assert torch.equal(KQ.quantize_map(rgb, alpha, pal, k_real, thr), ref)
+    assert KQ.LAUNCHES == before + 1
+    if palette == "whole" and b > 1:
+        # an image that does not start on a word boundary: byte path
+        flat = torch.empty(rgb.numel() + 3, dtype=torch.uint8, device=cuda)
+        off = flat[3:].view_as(rgb).copy_(rgb)
+        a_u8 = torch.empty(alpha.numel() + 1, dtype=torch.uint8, device=cuda)
+        a_off = a_u8[1:].view_as(alpha).copy_(alpha)
+        assert torch.equal(KQ.quantize_map(off, a_off, pal, k_real, thr), ref)
+
+
+def test_quantize_kernel_256_entries(cuda):
+    """The largest palette the kernel stages, whole and fractional."""
+    g = _gen(cuda, 9)
+    rgb = torch.randint(0, 256, (2, 64, 100, 3), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    alpha = torch.rand((2, 64, 100), generator=g, device=cuda) > 0.3
+    pal = torch.randint(0, 256, (2, 256, 3), generator=g, device=cuda).float()
+    pal[1] += torch.rand((256, 3), generator=g, device=cuda)
+    thr = torch.tensor([-1.0, 30.0], device=cuda)
+    assert KQ.whole_number_palette(pal, 256).tolist() == [True, False]
+    assert torch.equal(KQ.quantize_map(rgb, alpha, pal, 256, thr),
+                       KQ.quantize_map_plain(rgb, alpha, pal, 256, thr))
 
 
 @pytest.mark.parametrize("s", [255.0, 3.0])
