@@ -16,9 +16,14 @@ Phases, each raising (and exiting non-zero) on failure:
    variant of K8 against K1's. K3 must give the plain version's bits at
    every shape; K4 is checked and timed on whole-number palettes
    (its integer path, the main path's case), on fractional ones and on a
-   batch that mixes the two. For K3 and K4 the time of launches made back
-   to back stands beside the time of one launch between two events, which
-   also holds the host's way to the launch;
+   batch that mixes the two. K2 must give the plain version's bits too
+   (also at a width that is no multiple of 4 and on an image narrower than
+   a strip); K1 is exact on random, all-equal and alpha-like rows, over 200
+   calls made back to back on changing inputs, and a profile shows that a
+   call is one device operation. For every kernel the time of launches made
+   back to back stands beside the time of one launch between two events,
+   which also holds the host's way to the launch; for K1 and K2 also the
+   time of the same calls replayed from a CUDA graph, the device's alone;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, with output checks, per-kernel launch counts, and a
    bit-identical second run;
@@ -62,6 +67,7 @@ import torch
 
 from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
+from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
 from image_segmenter_tpu_torch.bench import micro_quantize as BENCH_QUANT
 from image_segmenter_tpu_torch.compat import _perceptual as PERCEPTUAL
 from image_segmenter_tpu_torch.compat import color_simplify as CS
@@ -178,63 +184,116 @@ def median_ms(fn, reps: int = REPS, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def photo_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
-    """Smooth gradients + sensor-like noise (bench.py's synthetic recipe),
-    phase-shifted per image so the images differ."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    out = np.empty((b, h, w, 3), np.uint8)
-    for i in range(b):
-        s = 17.0 * i
-        base = np.stack([
-            127 + 100 * np.sin((xx + s) / 97.0) * np.cos(yy / 53.0),
-            127 + 100 * np.cos((xx - s) / 131.0),
-            127 + 100 * np.sin((xx + yy + s) / 173.0),
-        ], axis=-1)
-        noise = rng.standard_normal((h, w, 3), dtype=np.float32) * 6.0
-        out[i] = np.clip(base + noise, 0, 255).astype(np.uint8)
-    return out
+# smooth gradients + sensor-like noise (bench.py's synthetic recipe),
+# phase-shifted per image so the images differ
+photo_batch = BENCH_K12.photo_batch
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _bincount(x: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes K1's function: bincount on
+    values offset by 256 per row (the conversion it needs is timed too)."""
+    offs = (torch.arange(x.shape[0], device=x.device) * 256)[:, None]
+    return torch.bincount((x.to(torch.int64) + offs).flatten(),
+                          minlength=256 * x.shape[0]).reshape(-1, 256)
+
+
+def _device_operations(fn, calls: int = 10):
+    """Names of the device operations (kernels, memsets, copies) that
+    `calls` calls of `fn` put on the card, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def check_histogram(label: str, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randint(0, 256, (BATCH, H4K * W4K), generator=g,
                       dtype=torch.uint8, device=dev)
-    x[0, :1 << 20] = 255  # a long run of one value: worst-case contention
+    x[0, :1 << 20] = 255  # a long run of one value
+    # what the main path counts: planes that are mostly 0 and 255
+    alpha = torch.from_numpy(BENCH_K12.alpha_like(
+        BATCH, H4K * W4K, np.random.default_rng(1))).to(dev)
+    hot = float(((alpha == 0) | (alpha == 255)).double().mean())
+    if hot < 0.9:
+        fail(f"histogram: the alpha-like plane has only {hot} of 0 and 255")
     cases = {"main": x, "ragged": x[:2, :RAGGED[0] * RAGGED[1]].contiguous(),
-             "unaligned": x[1, 1:].reshape(1, -1)}
+             "unaligned": x[1, 1:].reshape(1, -1), "alpha-like": alpha,
+             "all-equal": torch.full((2, MH * MW), 255, dtype=torch.uint8,
+                                     device=dev),
+             "small": x[:, :MH * MW].contiguous(),
+             "empty": x[:, :0].contiguous()}
     err = 0.0
     for name, xi in cases.items():
         got = KH.hist256(xi)
         ref = KH.hist256_plain(xi)
         if not torch.equal(got, ref):
             fail(f"histogram {name} {tuple(xi.shape)} differs from plain")
+        if not torch.equal(got, _bincount(xi).to(ref.dtype)):
+            fail(f"histogram {name} {tuple(xi.shape)} differs from bincount")
         err = max(err, float((got - ref).abs().max()))
-    ms = median_ms(lambda: KH.hist256(x))
+
+    # 200 calls back to back on changing inputs: the kernel itself clears
+    # its scratch, and no call may see another's counts
+    pool = [c for c in cases.values() if c.numel()]
+    refs = [_bincount(c).to(torch.float32) for c in pool]
+    torch.cuda.synchronize()
+    outs = [KH.hist256(pool[i % len(pool)]) for i in range(200)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        if not torch.equal(out, refs[i % len(pool)]):
+            fail(f"histogram: call {i} of 200 back to back differs from "
+                 "bincount")
+
+    # one device operation a call: no memset, no cast
+    ops = _device_operations(lambda: KH.hist256(x), calls=10)
+    if ops:
+        print(f"[kernels] histogram: 10 calls of hist256 put {len(ops)} "
+              f"device operations on the card (torch.profiler): "
+              f"{sorted(set(ops))}")
+        if len(ops) != 10:
+            fail(f"histogram: {len(ops)} device operations in 10 calls")
+    else:
+        print("[kernels] histogram: torch.profiler recorded no device "
+              "operation; operations a call not measured")
+
+    def times(xi):
+        fn = lambda: KH.hist256(xi)  # noqa: E731
+        return (median_ms(fn), median_ms(fn, inner=BACK_TO_BACK),
+                BENCH_K12.graph_ms(fn, BACK_TO_BACK, REPS))
+
+    ms, b2b, graph = times(x)
+    a_ms, a_b2b, a_graph = times(alpha)
+    s_ms, s_b2b, s_graph = times(cases["small"])
     plain_ms = median_ms(lambda: KH.hist256_plain(x))
-
-    # the one PyTorch call that computes the same function: bincount on
-    # values offset by 256 per row (the conversion it needs is timed too)
-    offs = (torch.arange(x.shape[0], device=dev) * 256)[:, None]
-
-    def library():
-        return torch.bincount((x.to(torch.int64) + offs).flatten(),
-                              minlength=256 * x.shape[0]).reshape(-1, 256)
-
-    if not torch.equal(library().to(ref.dtype), KH.hist256_plain(x)):
-        fail("histogram: the bincount yardstick differs from plain")
-    library_ms = median_ms(library)
-    # x read once, (B, 256) int32 written; one increment per element
+    library_ms = median_ms(lambda: _bincount(x))
+    # x read once, (B, 256) float32 written; one increment per element
     bd = bound(x.numel() + x.shape[0] * 256 * 4, x.numel())
-    print(f"[kernels] histogram {tuple(x.shape)} u8: exact; kernel {ms:.4f} ms,"
-          f" plain {plain_ms:.4f} ms, bincount {library_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({label})")
+    print(f"[kernels] histogram {tuple(x.shape)} u8: exact on 7 inputs and "
+          f"over 200 calls back to back; random bytes {ms:.4f} ms one launch "
+          f"between events, {b2b:.4f} back to back, {graph:.4f} from a CUDA "
+          f"graph; alpha-like plane ({hot:.3f} of 0 and 255) {a_ms:.4f}, "
+          f"{a_b2b:.4f}, {a_graph:.4f}; (4, {MH * MW}) random {s_ms:.4f}, "
+          f"{s_b2b:.4f}, {s_graph:.4f}; plain {plain_ms:.4f} ms, bincount "
+          f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({label})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "ms_back_to_back": b2b,
+            "ms_graph": graph, "ms_alpha_like": a_ms,
+            "ms_alpha_like_back_to_back": a_b2b, "ms_alpha_like_graph": a_graph,
+            "ms_small": s_ms, "ms_small_back_to_back": s_b2b,
+            "ms_small_graph": s_graph}
 
 
 def _precompute_err(got, ref) -> float:
@@ -244,20 +303,39 @@ def _precompute_err(got, ref) -> float:
     return float(torch.minimum(err, rel).max())
 
 
+# K2 beyond the main path's shape: ragged, a width that is no multiple of 4
+# over several strips, an image narrower than a strip, a single row
+PRECOMPUTE_SHAPES = [(2, 3, *RAGGED), (1, 3, 203, 389), (2, 3, 19, 7),
+                     (1, 3, 1, 64)]
+
+
 def check_precompute(label: str, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(2)
     err_main = None
-    for shape in [(BATCH, 3, MH, MW), (2, 3, *RAGGED)]:
+    for shape in [(BATCH, 3, MH, MW)] + PRECOMPUTE_SHAPES:
         img = torch.rand(shape, generator=g, device=dev)
-        got = KP.precompute_planes(img, 1e-7)
-        ref = KP.precompute_planes_plain(img, 1e-7)
-        e = _precompute_err(got, ref)
-        if not e < 1e-4:
-            fail(f"precompute {shape}: min(abs, rel) error {e} >= 1e-4")
+        flat = torch.tensor([0.3, 0.6, 0.45], device=dev)[None, :, None, None] \
+            + 1e-4 * (torch.rand(shape, generator=g, device=dev) - 0.5)
+        for name, im in (("random", img), ("near-singular", flat)):
+            got = KP.precompute_planes(im, 1e-7)
+            ref = KP.precompute_planes_plain(im, 1e-7)
+            e = _precompute_err(got, ref)
+            if not e < 1e-4:
+                fail(f"precompute {shape} {name}: min(abs, rel) error {e} "
+                     ">= 1e-4")
+            # the kernel keeps the plain version's order of sums, divides
+            # by n to the same rounding, and is built without FMA
+            # contraction: the same bits
+            if not torch.equal(got, ref):
+                fail(f"precompute {shape} {name}: not the plain version's "
+                     "bits")
         if err_main is None:
             err_main = float((got - ref).abs().max())
             main_img = img
-    ms = median_ms(lambda: KP.precompute_planes(main_img, 1e-7))
+    fn = lambda: KP.precompute_planes(main_img, 1e-7)  # noqa: E731
+    ms = median_ms(fn)
+    b2b = median_ms(fn, inner=BACK_TO_BACK)
+    graph = BENCH_K12.graph_ms(fn, BACK_TO_BACK, REPS)
     plain_ms = median_ms(lambda: KP.precompute_planes_plain(main_img, 1e-7))
     # 3 image planes read, 12 planes written. Operations per pixel: the
     # count and mean boxes and their division (19), pass A (9 shifts x 16),
@@ -265,12 +343,15 @@ def check_precompute(label: str, dev) -> dict:
     # pivots, inverse entries and flag (about 45): about 690.
     px = BATCH * MH * MW
     bd = bound(15 * px * 4, 690 * px)
-    print(f"[kernels] precompute (4, 3, {MH}, {MW}) f32: within 1e-4, "
-          f"max|diff| {err_main:.3g}; kernel {ms:.4f} ms, plain "
+    print(f"[kernels] precompute (4, 3, {MH}, {MW}) f32: the plain version's "
+          f"bits at every shape, random and near-singular; kernel {ms:.4f} ms "
+          f"one launch between events, {b2b:.4f} back to back, {graph:.4f} "
+          f"from a CUDA graph (strip {KP.STRIP}, runs of "
+          f"{KP.run_rows(MH, MW, BATCH, _sms(dev))} rows), plain "
           f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
           f"{bd['bound_by']} ({label})")
     return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": None}
+            "library_ms": None, "ms_back_to_back": b2b, "ms_graph": graph}
 
 
 # Operations per pixel of one L @ p: the box of p and its division (5),
@@ -359,6 +440,7 @@ def check_matvec_stack(label: str, dev) -> dict:
             same_bits = torch.equal(got, k3)
             args = (stack, p)
     ms = median_ms(lambda: KMV.matvec_stack(*args))
+    b2b = median_ms(lambda: KMV.matvec_stack(*args), inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: KMV.matvec_stack_plain(*args))
     # the least the function must move: the 13 planes at the image and
     # its halo of 2 and p read, one plane written. The stack's padding to
@@ -370,10 +452,11 @@ def check_matvec_stack(label: str, dev) -> dict:
     print(f"[kernels] matvec_stack (4, 13, {args[0].shape[2]}, "
           f"{args[0].shape[3]}) f32: within 1e-5 of max|ref| of plain and of "
           f"K3, max|diff| {err_main:.3g}, bit-equal to K3: {same_bits}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"kernel {ms:.4f} ms one launch between events, {b2b:.4f} back to "
+          f"back, plain {plain_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({label})")
     return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": None}
+            "library_ms": None, "ms_back_to_back": b2b}
 
 
 def check_matvec_recompute(label: str, dev) -> dict:
@@ -399,6 +482,7 @@ def check_matvec_recompute(label: str, dev) -> dict:
             err_k3 = e3
             args = (p_pad, static)
     ms = median_ms(lambda: K6.matvec_planes(*args))
+    b2b = median_ms(lambda: K6.matvec_planes(*args), inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: K6.matvec_planes_plain(*args))
     # the least the function must move: 10 static planes and p at the
     # image and its halo of 2 read (the zero columns beyond W + 4 are
@@ -410,11 +494,12 @@ def check_matvec_recompute(label: str, dev) -> dict:
     bd = bound((11 * halo_px + out_px) * 4, RECOMPUTE_OPS * px)
     print(f"[kernels] matvec_recompute (4, 10, {args[1].shape[2]}, "
           f"{args[1].shape[3]}) f32: within 1e-5 of max|ref| of plain and of "
-          f"K3 ({err_k3:.3g}), max|diff| {err_main:.3g}; kernel {ms:.4f} ms, "
+          f"K3 ({err_k3:.3g}), max|diff| {err_main:.3g}; kernel {ms:.4f} ms "
+          f"one launch between events, {b2b:.4f} back to back, "
           f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
           f"{bd['bound_by']} ({label})")
     return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": None}
+            "library_ms": None, "ms_back_to_back": b2b}
 
 
 def check_quantize(label: str, dev) -> dict:
@@ -502,6 +587,7 @@ def check_quantize_flat(label: str, dev) -> dict:
             args = (planes, alpha.reshape(b, h * w), pal, k_real, thr)
             whole = (rgb, alpha, pal, k_real, thr)
     ms = median_ms(lambda: K7.quantize_planes(*args))
+    b2b = median_ms(lambda: K7.quantize_planes(*args), inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: K7.quantize_planes_plain(*args))
     function_ms = median_ms(lambda: K7.quantize_map_flat(*whole))
     # K4's work: 3 + 1 bytes read and 3 written per pixel, 9 operations
@@ -509,12 +595,14 @@ def check_quantize_flat(label: str, dev) -> dict:
     px = BATCH * H4K * W4K
     bd = bound(7 * px + BATCH * 16 * 3 * 4, (9 * 16 + 8) * px)
     print(f"[kernels] quantize_flat planes (3, 4, {H4K * W4K}) u8 k=16: "
-          f"bit-equal to plain and to K4; kernel {ms:.4f} ms, with the split "
+          f"bit-equal to plain and to K4; kernel {ms:.4f} ms one launch "
+          f"between events, {b2b:.4f} back to back, with the split "
           f"into planes and the stack back {function_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
           f"{bd['bound_by']} ({label})")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": None, "function_ms": function_ms}
+            "library_ms": None, "function_ms": function_ms,
+            "ms_back_to_back": b2b}
 
 
 def check_hist_variants(label: str, dev) -> dict:
@@ -525,13 +613,7 @@ def check_hist_variants(label: str, dev) -> dict:
     x[0, :1 << 20] = 255  # a long run of one value
     cases = {"main": x, "ragged": x[:2, :RAGGED[0] * RAGGED[1]].contiguous(),
              "unaligned": x[1, 1:].reshape(1, -1), "one row": x[:1]}
-    offs = (torch.arange(x.shape[0], device=dev) * 256)[:, None]
-
-    def library():
-        return torch.bincount((x.to(torch.int64) + offs).flatten(),
-                              minlength=256 * x.shape[0]).reshape(-1, 256)
-
-    ref_lib = library().to(torch.float32)
+    ref_lib = _bincount(x).to(torch.float32)
     per_variant = {}
     for variant in K8.STEPS:
         for name, xi in cases.items():
@@ -545,23 +627,28 @@ def check_hist_variants(label: str, dev) -> dict:
             fail(f"hist_variants {variant} differs from bincount")
         per_variant[variant] = {
             "ms": median_ms(lambda: K8.hist_variant(x, variant)),
+            "ms_back_to_back": median_ms(lambda: K8.hist_variant(x, variant),
+                                         inner=BACK_TO_BACK),
             "ms_one_row": median_ms(lambda: K8.hist_variant(x[:1], variant))}
     if not torch.equal(K8.hist_variant_plain(x, "N3D"), ref_lib):
         fail("hist_variants: the plain version differs from bincount")
     plain_ms = median_ms(lambda: K8.hist_variant_plain(x, "N3D"), reps=3)
-    library_ms = median_ms(library)
-    k1_ms = median_ms(lambda: KH.hist256(x))
+    library_ms = median_ms(lambda: _bincount(x))
+    k1_ms = median_ms(lambda: KH.hist256(x), inner=BACK_TO_BACK)
     bd = bound(x.numel() + x.shape[0] * 256 * 4, x.numel())
     bd1 = bound(x.shape[1] + 256 * 4, x.shape[1])
     for variant, t in per_variant.items():
         print(f"[kernels] hist_variants {variant} {tuple(x.shape)} u8: exact "
-              f"against plain, K1 and bincount; kernel {t['ms']:.4f} ms (bound "
+              f"against plain, K1 and bincount; kernel {t['ms']:.4f} ms one "
+              f"launch, {t['ms_back_to_back']:.4f} back to back (bound "
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}), one row "
               f"{t['ms_one_row']:.4f} ms (bound {bd1['bound_ms']:.4f} ms) "
               f"({label})")
-    print(f"[kernels] hist_variants: K1 on the same rows {k1_ms:.4f} ms, plain "
+    print(f"[kernels] hist_variants: K1 on the same rows {k1_ms:.4f} ms back "
+          f"to back, plain "
           f"(N3D) {plain_ms:.4f} ms, bincount {library_ms:.4f} ms ({label})")
     return {"max_abs_err": 0.0, "ms": per_variant["N3D"]["ms"],
+            "ms_back_to_back": per_variant["N3D"]["ms_back_to_back"],
             "plain_ms": plain_ms, **bd, "library_ms": library_ms,
             "variants": per_variant}
 
@@ -608,6 +695,11 @@ def run_slice(label: str) -> dict:
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched by the main path")
+    # one histogram for the trimap's two quantiles and one for Otsu; one
+    # precompute and one palette map a batch
+    if (launches["histogram"], launches["precompute"],
+            launches["quantize"]) != (2, 1, 1):
+        fail(f"the main path's launches a run changed: {launches}")
 
     check_output(out, 16, BATCH, H4K, W4K)
     again = pipe.run(x)

@@ -9,8 +9,9 @@ K1 (`kernels.histogram.hist256`) count the same inputs:
 
 - "random": uniform bytes from numpy's default_rng(0), one row of n and
   `rows` rows of n, as the TPU bench;
-- "run": the same row with its first 2^20 elements set to one value, the
-  input on which K1's per-warp tables contend.
+- "run": the same row with its first 2^20 elements set to one value (lanes
+  of a warp that add to one address; on an H100 that costs no more than
+  one lane does).
 
 Every count must equal np.bincount. On a CPU tensor each wrapper takes its
 plain version, so a CPU run checks the plumbing only.

@@ -36,10 +36,12 @@ _F32 = ctypes.c_float
 # C entry -> argtypes. Pointers and the stream are void*; every entry
 # returns an int cudaError_t.
 SIGNATURES = {
-    # (x u8 (B, n), n, B, out int32 (B, 256), stream)
-    "iseg_hist256": [_P, _I64, _I32, _P, _P],
-    # (img f32 (B, 3, H, W), B, H, W, eps, out f32 (B, 12, H, W), stream)
-    "iseg_precompute": [_P, _I32, _I32, _I32, _F32, _P, _P],
+    # (x u8 (B, n), n, B, blocks a row, scratch int32 (>= B, 257) all zero,
+    #  out f32 (B, 256), stream)
+    "iseg_hist256": [_P, _I64, _I32, _I32, _P, _P, _P],
+    # (img f32 (B, 3, H, W), B, H, W, eps, rows a run,
+    #  out f32 (B, 12, H, W), stream)
+    "iseg_precompute": [_P, _I32, _I32, _I32, _F32, _I32, _P, _P],
     # (planes f32 (B, 12, H, W), img f32 (B, 3, H, W), p f32 (B, H, W),
     #  B, H, W, rows a run, out f32 (B, H, W), stream)
     "iseg_matvec": [_P, _P, _P, _I32, _I32, _I32, _I32, _P, _P],

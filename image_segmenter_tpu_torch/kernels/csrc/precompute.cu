@@ -14,195 +14,335 @@
 // rank-deficiency flag. Per pixel i: diag(L)_i = n_i - sum over the
 // windows k covering i of (1 + quad_k(I_i - mu_k)) / n_k.
 //
-// Bound on this card: arithmetic and shared-memory reads. Each window
-// reads its 9 members 4 times (means and three passes) and each pixel its
-// 9 covering windows' statistics; device memory sees 12 B in and 48 B out
-// per pixel.
+// Bound on this card: the instruction slots. Device memory sees 12 B in
+// and 48 B out per pixel (42 us at 4 x 576 x 1024); the arithmetic is about
+// 690 operations a pixel, none of them fused (the library is built without
+// FMA contraction so that the floats are the plain version's), 18 of them
+// IEEE divisions of some nine instructions each: more than 800
+// instructions a pixel, 75-80 us of the card's instruction slots. So the
+// design spends instructions on nothing else: no shared memory, no barrier,
+// no value loaded or centred twice.
 //
-// Design: a block owns a 16 x 32 output tile. It loads the image tile
-// with a halo of 2 (and an in-image flag) into shared memory once, runs
-// every window pass for the tile plus a halo of 1 (the centre grid, so
-// the diag member sum finds all its windows), keeps the centre grid's
-// means and window inverses in shared memory (36 KB, static), then forms
-// diag. The residual passes keep the Pallas kernel's shift order; the
-// box sums, the inverse and the diag quadratic form follow the plain
-// version's order of operations, and the library is built without FMA
-// contraction (kernels/_build.py), so the planes match the plain version
-// bit for bit on the card, well inside the stated 1e-4 bound.
+// Design: a warp walks down a strip of 30 output columns, one row of
+// windows (a centre row) a step. Lane l owns column x0 - 1 + l: lanes 1..30
+// are output columns, lanes 0 and 31 the halo windows the edge pixels'
+// diag needs.
+// - A lane loads its own column of the next image row (started one step
+//   ahead) and gets the columns left and right of it by warp shuffle (lanes
+//   0 and 31 load theirs); the two upper rows of the 3 x 3 window stay in
+//   registers from the steps before. The 27 centred, masked values d are
+//   formed once and serve pass A, pass B and the diag terms; pass C works on
+//   pass B's residuals (rr = r3 - l32 r2, the same floats as the plain
+//   version's expression). The count n and the in-image flags come from the
+//   window's position, not from a plane of ones; where every window of the
+//   warp lies inside the image (almost everywhere) the flags are all 1 and
+//   the multiplications by them are left out. The twelve divisions by n
+//   (three means, nine diag terms) share one reciprocal: quotient estimate,
+//   exact remainder, one correction give the correctly rounded quotient
+//   (div_n); the six divisions by the pivots stay IEEE divisions.
+// - diag is summed where the plain version forms it: window k computes
+//   g = (1 + quad_k(d_j)) / n_k for each of its nine members j, and pixel i
+//   adds the nine g it is a member of in the plain version's shift order:
+//   three from the centre row above (left, own, right lane: two shuffles),
+//   three from its own, three from the row below. A lane carries the two
+//   open sums; output row c - 1 closes in step c. Windows centred outside
+//   the image give 0, as the plain version's zero padding does.
+// - Every plane is stored by the lanes of a warp along a row.
+// - The grid is strips x row runs x images, four warps a block, each warp
+//   on its own; the caller chooses the run length (kernels/precompute.py:
+//   run_rows) so that the warps fill the card once. A run recomputes the
+//   two centre rows at its ends, a strip two of 32 columns.
+// TMA and wgmma have nothing to give: there is no matrix product, and the
+// loads are a fifth of the traffic of a kernel that memory does not bound.
+// Sums keep the plain version's order (boxes columns then rows, moments
+// shift-major); a masked member adds a signed zero where the plain version
+// adds one, so the planes match the plain version bit for bit on the card,
+// well inside the stated 1e-4 bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TH = 16, TW = 32;           // output tile
-constexpr int LH = TH + 4, LW = TW + 4;   // loaded tile (halo 2)
-constexpr int CH = TH + 2, CW = TW + 2;   // centre grid (halo 1)
-constexpr int kThreads = 256;
+constexpr int SW = 30;             // output columns a warp walks down
+constexpr int kWarps = 4;          // warps a block, each on its own strip
+constexpr int kThreads = 32 * kWarps;
 constexpr float kDelta = 1e-5f;
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
-__global__ void __launch_bounds__(kThreads)
+struct Walk {
+  const float* im;     // the image's three planes
+  float* o;            // the image's twelve output planes
+  int64_t plane;
+  int H, W, lane, gx, ex;
+  bool col_in, ex_in;
+
+  // row `row` of the image at the lane's column (cur) and, for lanes 0 and
+  // 31, at the column beyond it (ext); zeros outside the image
+  __device__ __forceinline__ void load_row(int row, float (&cur)[3],
+                                           float (&ext)[3]) const {
+    const bool rin = row >= 0 && row < H;
+    const float* r = im + (int64_t)(rin ? row : 0) * W;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      cur[ch] = (rin && col_in) ? __ldg(r + ch * plane + gx) : 0.f;
+      ext[ch] = (rin && ex_in) ? __ldg(r + ch * plane + ex) : 0.f;
+    }
+  }
+
+  // w[3 ch + 0..2]: the row at columns gx - 1, gx, gx + 1
+  __device__ __forceinline__ void spread(const float (&cur)[3],
+                                         const float (&ext)[3],
+                                         float (&w)[9]) const {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float l = __shfl_up_sync(kAll, cur[ch], 1);
+      const float r = __shfl_down_sync(kAll, cur[ch], 1);
+      w[3 * ch + 0] = lane == 0 ? ext[ch] : l;
+      w[3 * ch + 1] = cur[ch];
+      w[3 * ch + 2] = lane == 31 ? ext[ch] : r;
+    }
+  }
+};
+
+// x / n for a window count n (1, 2, 3, 4, 6 or 9) with rn = RN(1 / n):
+// the quotient estimate, its exact remainder and one correction, which is
+// the correctly rounded quotient (Markstein's final step; it is also what
+// the compiler's own division does after it has formed the reciprocal).
+// Twelve divisions by n a window share one reciprocal this way.
+__device__ __forceinline__ float div_n(float x, float n, float rn) {
+  const float q = x * rn;
+  const float rem = __fmaf_rn(-q, n, x);
+  return __fmaf_rn(rem, rn, q);
+}
+
+// The statistics of the window centred at (c, gx) from its three rows wa,
+// wb, wc: the eleven planes stored if `store`, and g[3 (my + 1) + mx + 1],
+// the window's term of the diag of its member (my, mx). EDGE: some member
+// of some lane's window may lie outside the image; otherwise every member
+// counts, n is 9, and the masks (factors of exactly 1) are left out.
+template <bool EDGE>
+__device__ __forceinline__ void window(const Walk& k, int c,
+                                       const float (&wa)[9],
+                                       const float (&wb)[9],
+                                       const float (&wc)[9], float eps,
+                                       bool store, float (&g)[9]) {
+  const int gx = k.gx, H = k.H, W = k.W;
+  float v[9];
+  float n = 9.f, rn = 1.f / 9.f;
+  if (EDGE) {
+    const float vrow[3] = {c - 1 >= 0 ? 1.f : 0.f, 1.f, c + 1 < H ? 1.f : 0.f};
+    const float vcol[3] = {gx - 1 >= 0 ? 1.f : 0.f, 1.f,
+                           gx + 1 < W ? 1.f : 0.f};
+#pragma unroll
+    for (int j = 0; j < 9; ++j) v[j] = vrow[j / 3] * vcol[j % 3];
+    n = (float)(((c - 1 >= 0) + 1 + (c + 1 < H))
+                * ((gx - 1 >= 0) + 1 + (gx + 1 < W)));
+    rn = 1.f / n;
+  }
+  // the means: 3x3 boxes summed over columns, then rows
+  float mu[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float t0 = (wa[3 * ch] + wa[3 * ch + 1]) + wa[3 * ch + 2];
+    const float t1 = (wb[3 * ch] + wb[3 * ch + 1]) + wb[3 * ch + 2];
+    const float t2 = (wc[3 * ch] + wc[3 * ch + 1]) + wc[3 * ch + 2];
+    mu[ch] = div_n((t0 + t1) + t2, n, rn);
+  }
+  // the centred, masked members, formed once
+  float d0[9], d1[9], d2[9];
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    d0[x] = wa[x] - mu[0];
+    d1[x] = wa[3 + x] - mu[1];
+    d2[x] = wa[6 + x] - mu[2];
+    d0[3 + x] = wb[x] - mu[0];
+    d1[3 + x] = wb[3 + x] - mu[1];
+    d2[3 + x] = wb[6 + x] - mu[2];
+    d0[6 + x] = wc[x] - mu[0];
+    d1[6 + x] = wc[3 + x] - mu[1];
+    d2[6 + x] = wc[6 + x] - mu[2];
+  }
+  if (EDGE) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      d0[j] *= v[j];
+      d1[j] *= v[j];
+      d2[j] *= v[j];
+    }
+  }
+  // pass A: first-channel moments + covariance trace
+  float a00 = 0.f, a01 = 0.f, a02 = 0.f, a11 = 0.f, a22 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    a00 += d0[j] * d0[j];
+    a01 += d0[j] * d1[j];
+    a02 += d0[j] * d2[j];
+    a11 += d1[j] * d1[j];
+    a22 += d2[j] * d2[j];
+  }
+  const float tr = (a00 + a11) + a22;
+  const float eps_w = fmaxf(kDelta * tr, eps);
+  const float p1 = a00 + eps_w;
+  const float l21 = a01 / p1;
+  const float l31 = a02 / p1;
+  // pass B: residuals of ch2/ch3 on ch1. A masked member's residuals are
+  // zeros, so the plain version's factor v changes no bit
+  float r2[9], r3[9];
+  float q22 = 0.f, q23 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    r2[j] = d1[j] - l21 * d0[j];
+    r3[j] = d2[j] - l31 * d0[j];
+    q22 += r2[j] * r2[j];
+    q23 += r2[j] * r3[j];
+  }
+  const float p2 = q22 + eps_w * (1.f + l21 * l21);
+  const float l32 = (q23 + eps_w * l21 * l31) / p2;
+  // pass C: residual of ch3 on (ch1, ch2)
+  float q3 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const float rr = r3[j] - l32 * r2[j];
+    q3 += rr * rr;
+  }
+  const float bq = l21 * l32 - l31;
+  const float p3 = q3 + eps_w * ((bq * bq + l32 * l32) + 1.f);
+  const float rankdef = (q3 < kDelta * tr && tr > 1e-4f) ? 1.f : 0.f;
+  const float i1 = n / p1, i2 = n / p2, i3 = n / p3;
+
+  // (Sigma + eps/n I)^-1 = Linv' diag(i) Linv
+  const float v00 = i1 + l21 * l21 * i2 + bq * bq * i3;
+  const float v01 = -l21 * i2 - bq * l32 * i3;
+  const float v02 = bq * i3;
+  const float v11 = i2 + l32 * l32 * i3;
+  const float v12 = -l32 * i3;
+  const float v22 = i3;
+  // this window's term of each member's diag (an in-image member's d is
+  // I_j - mu_k as it stands; the others' terms are never read)
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const float e0 = d0[j], e1 = d1[j], e2 = d2[j];
+    const float quad =
+        v00 * e0 * e0 + v11 * e1 * e1 + v22 * e2 * e2
+        + 2.f * (v01 * e0 * e1 + v02 * e0 * e2 + v12 * e1 * e2);
+    g[j] = div_n(1.f + quad, n, rn);
+  }
+
+  if (store) {
+    const int64_t plane = k.plane;
+    float* p = k.o + (int64_t)c * W + gx;
+    p[0 * plane] = i1;
+    p[1 * plane] = i2;
+    p[2 * plane] = i3;
+    p[3 * plane] = l21;
+    p[4 * plane] = l31;
+    p[5 * plane] = l32;
+    p[7 * plane] = n;
+    p[8 * plane] = mu[0];
+    p[9 * plane] = mu[1];
+    p[10 * plane] = mu[2];
+    p[11 * plane] = rankdef;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 precompute_kernel(const float* __restrict__ img, int H, int W, float eps,
+                  int run_rows, int strips, int runs, int warps,
                   float* __restrict__ out) {
-  __shared__ float s_v[LH][LW];
-  __shared__ float s_img[3][LH][LW];
-  __shared__ float c_n[CH][CW];
-  __shared__ float c_mu[3][CH][CW];
-  __shared__ float c_dinv[6][CH][CW];  // 00, 01, 02, 11, 12, 22
+  const int wid = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (wid >= warps) return;   // the whole warp
+  const int strip = wid % strips;
+  const int run = (wid / strips) % runs;
+  const int64_t b = wid / (strips * runs);
 
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int64_t plane = (int64_t)H * W;
-  const float* im = img + (int64_t)b * 3 * plane;
-  float* o = out + (int64_t)b * 12 * plane;
+  Walk k;
+  k.plane = (int64_t)H * W;
+  k.im = img + b * 3 * k.plane;
+  k.o = out + b * 12 * k.plane;
+  k.H = H;
+  k.W = W;
+  k.lane = threadIdx.x & 31;
+  k.gx = strip * SW - 1 + k.lane;
+  k.ex = k.lane == 0 ? k.gx - 1 : k.gx + 1;
+  k.col_in = k.gx >= 0 && k.gx < W;
+  k.ex_in = (k.lane == 0 || k.lane == 31) && k.ex >= 0 && k.ex < W;
+  const int lane = k.lane, gx = k.gx;
+  const bool col_out = lane >= 1 && lane <= SW && k.col_in;
+  const int r0 = run * run_rows;
+  const int r1 = min(r0 + run_rows, H);   // output rows [r0, r1)
+  // every column any lane's window touches lies in the image
+  const bool cols_inside = strip * SW - 2 >= 0 && strip * SW + 31 < W;
+  const int nx = (gx - 1 >= 0) + 1 + (gx + 1 < W);
 
-  for (int i = threadIdx.x; i < LH * LW; i += kThreads) {
-    const int ly = i / LW, lx = i % LW;
-    const int gy = y0 - 2 + ly, gx = x0 - 2 + lx;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const int64_t g = (int64_t)gy * W + gx;
-    s_v[ly][lx] = in ? 1.f : 0.f;
-    s_img[0][ly][lx] = in ? im[g] : 0.f;
-    s_img[1][ly][lx] = in ? im[plane + g] : 0.f;
-    s_img[2][ly][lx] = in ? im[2 * plane + g] : 0.f;
-  }
-  __syncthreads();
+  // rows c - 1, c, c + 1 of the window; the row after them, on its way
+  float wa[9], wb[9], wc[9], cur[3], ext[3];
+  const int c0 = r0 - 1;
+  k.load_row(c0 - 1, cur, ext);
+  k.spread(cur, ext, wa);
+  k.load_row(c0, cur, ext);
+  k.spread(cur, ext, wb);
+  k.load_row(c0 + 1, cur, ext);
+  // the open diag sums of pixel rows c - 1 and c before step c
+  float s1 = 0.f, s0 = 0.f;
 
-  // ---- window statistics on the centre grid ---------------------------
-  for (int i = threadIdx.x; i < CH * CW; i += kThreads) {
-    const int cy = i / CW, cx = i % CW;
-    const int ly = cy + 1, lx = cx + 1;   // window centre in the loaded tile
-    // windows centred outside the image do not exist: never read below
-    if (s_v[ly][lx] == 0.f) continue;
-    // n and the means: 3x3 boxes summed over columns, then rows
-    float rv[3], ri[3][3];
-    for (int r = 0; r < 3; ++r) {
-      const int y = ly - 1 + r;
-      rv[r] = (s_v[y][lx - 1] + s_v[y][lx]) + s_v[y][lx + 1];
-      for (int c = 0; c < 3; ++c)
-        ri[c][r] = (s_img[c][y][lx - 1] + s_img[c][y][lx]) + s_img[c][y][lx + 1];
+  for (int c = c0; c <= r1; ++c) {
+    k.spread(cur, ext, wc);
+    if (c < r1) k.load_row(c + 2, cur, ext);
+
+    float g[9];
+    const bool store = col_out && c >= r0 && c < r1;
+    if (cols_inside && c - 1 >= 0 && c + 1 < H) {
+      window<false>(k, c, wa, wb, wc, eps, store, g);
+    } else if (c >= 0 && c < H && k.col_in) {
+      window<true>(k, c, wa, wb, wc, eps, store, g);
+    } else {   // windows centred outside the image do not exist
+#pragma unroll
+      for (int j = 0; j < 9; ++j) g[j] = 0.f;
     }
-    const float n = (rv[0] + rv[1]) + rv[2];
-    float mu[3];
-    for (int c = 0; c < 3; ++c) mu[c] = ((ri[c][0] + ri[c][1]) + ri[c][2]) / n;
 
-    // pass A: first-channel moments + covariance trace
-    float a00 = 0.f, a01 = 0.f, a02 = 0.f, a11 = 0.f, a22 = 0.f;
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx) {
-        const float vv = s_v[ly + dy][lx + dx];
-        const float d0 = (s_img[0][ly + dy][lx + dx] - mu[0]) * vv;
-        const float d1 = (s_img[1][ly + dy][lx + dx] - mu[1]) * vv;
-        const float d2 = (s_img[2][ly + dy][lx + dx] - mu[2]) * vv;
-        a00 += d0 * d0;
-        a01 += d0 * d1;
-        a02 += d0 * d2;
-        a11 += d1 * d1;
-        a22 += d2 * d2;
-      }
-    const float tr = (a00 + a11) + a22;
-    const float eps_w = fmaxf(kDelta * tr, eps);
-    const float p1 = a00 + eps_w;
-    const float l21 = a01 / p1;
-    const float l31 = a02 / p1;
-    // pass B: residuals of ch2/ch3 on ch1
-    float q22 = 0.f, q23 = 0.f;
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx) {
-        const float vv = s_v[ly + dy][lx + dx];
-        const float d0 = (s_img[0][ly + dy][lx + dx] - mu[0]) * vv;
-        const float d1 = (s_img[1][ly + dy][lx + dx] - mu[1]) * vv;
-        const float d2 = (s_img[2][ly + dy][lx + dx] - mu[2]) * vv;
-        const float r2 = d1 - l21 * d0;
-        const float r3 = d2 - l31 * d0;
-        q22 += vv * r2 * r2;
-        q23 += vv * r2 * r3;
-      }
-    const float p2 = q22 + eps_w * (1.f + l21 * l21);
-    const float l32 = (q23 + eps_w * l21 * l31) / p2;
-    // pass C: residual of ch3 on (ch1, ch2)
-    float q3 = 0.f;
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx) {
-        const float vv = s_v[ly + dy][lx + dx];
-        const float d0 = (s_img[0][ly + dy][lx + dx] - mu[0]) * vv;
-        const float d1 = (s_img[1][ly + dy][lx + dx] - mu[1]) * vv;
-        const float d2 = (s_img[2][ly + dy][lx + dx] - mu[2]) * vv;
-        const float rr = (d2 - l31 * d0) - l32 * (d1 - l21 * d0);
-        q3 += vv * rr * rr;
-      }
-    const float bq = l21 * l32 - l31;
-    const float p3 = q3 + eps_w * ((bq * bq + l32 * l32) + 1.f);
-    const float rankdef = (q3 < kDelta * tr && tr > 1e-4f) ? 1.f : 0.f;
-    const float i1 = n / p1, i2 = n / p2, i3 = n / p3;
-
-    // (Sigma + eps/n I)^-1 = Linv' diag(i) Linv, for the diag member sum
-    c_n[cy][cx] = n;
-    for (int c = 0; c < 3; ++c) c_mu[c][cy][cx] = mu[c];
-    c_dinv[0][cy][cx] = i1 + l21 * l21 * i2 + bq * bq * i3;   // 00
-    c_dinv[1][cy][cx] = -l21 * i2 - bq * l32 * i3;            // 01
-    c_dinv[2][cy][cx] = bq * i3;                              // 02
-    c_dinv[3][cy][cx] = i2 + l32 * l32 * i3;                  // 11
-    c_dinv[4][cy][cx] = -l32 * i3;                            // 12
-    c_dinv[5][cy][cx] = i3;                                   // 22
-
-    // centre cells inside the tile are output pixels: store their planes
-    const int oy = cy - 1, ox = cx - 1;
-    if (oy >= 0 && oy < TH && ox >= 0 && ox < TW) {
-      const int64_t g = (int64_t)(y0 + oy) * W + (x0 + ox);
-      o[0 * plane + g] = i1;
-      o[1 * plane + g] = i2;
-      o[2 * plane + g] = i3;
-      o[3 * plane + g] = l21;
-      o[4 * plane + g] = l31;
-      o[5 * plane + g] = l32;
-      o[7 * plane + g] = n;
-      o[8 * plane + g] = mu[0];
-      o[9 * plane + g] = mu[1];
-      o[10 * plane + g] = mu[2];
-      o[11 * plane + g] = rankdef;
+    // ---- diag(L): each pixel adds the terms of the windows covering it, in
+    // the plain version's shift order. Member (my, mx) of window (c, x) is
+    // pixel (c + my, x + mx): pixel (y, x) takes from centre row c = y - dy
+    // the members my = -dy of the lanes x - 1 (mx = +1), x and x + 1 (-1).
+    const float up_o = __shfl_up_sync(kAll, g[2], 1);    // my -1
+    const float dn_o = __shfl_down_sync(kAll, g[0], 1);
+    const float up_m = __shfl_up_sync(kAll, g[5], 1);    // my 0
+    const float dn_m = __shfl_down_sync(kAll, g[3], 1);
+    const float up_n = __shfl_up_sync(kAll, g[8], 1);    // my +1
+    const float dn_n = __shfl_down_sync(kAll, g[6], 1);
+    const float closed = ((s1 + up_o) + g[1]) + dn_o;    // pixel row c - 1
+    s1 = ((s0 + up_m) + g[4]) + dn_m;                    // pixel row c
+    s0 = (up_n + g[7]) + dn_n;                           // pixel row c + 1
+    const int y = c - 1;
+    if (col_out && y >= r0) {
+      const float ny = (float)(((y - 1 >= 0) + 1 + (y + 1 < H)) * nx);
+      k.o[6 * k.plane + (int64_t)y * W + gx] = ny - closed;
     }
-  }
-  __syncthreads();
 
-  // ---- diag(L): member sum over the covering windows ------------------
-  // diag_i = n_i - sum_s (1 + (I_i - mu_k)' Dk^-1 (I_i - mu_k)) / n_k over
-  // the windows k = i + s, in the shift order of the plain version.
-  for (int i = threadIdx.x; i < TH * TW; i += kThreads) {
-    const int oy = i / TW, ox = i % TW;
-    const int gy = y0 + oy, gx = x0 + ox;
-    if (gy >= H || gx >= W) continue;
-    const float px0 = s_img[0][oy + 2][ox + 2];
-    const float px1 = s_img[1][oy + 2][ox + 2];
-    const float px2 = s_img[2][oy + 2][ox + 2];
-    float diag_sum = 0.f;
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx) {
-        if (s_v[oy + 2 + dy][ox + 2 + dx] == 0.f) continue;  // no window
-        const int cy = oy + 1 + dy, cx = ox + 1 + dx;
-        const float d0 = px0 - c_mu[0][cy][cx];
-        const float d1 = px1 - c_mu[1][cy][cx];
-        const float d2 = px2 - c_mu[2][cy][cx];
-        const float quad =
-            c_dinv[0][cy][cx] * d0 * d0 + c_dinv[3][cy][cx] * d1 * d1
-            + c_dinv[5][cy][cx] * d2 * d2
-            + 2.f * (c_dinv[1][cy][cx] * d0 * d1 + c_dinv[2][cy][cx] * d0 * d2
-                     + c_dinv[4][cy][cx] * d1 * d2);
-        diag_sum += (1.f + quad) / fmaxf(c_n[cy][cx], 1.f);
-      }
-    o[6 * plane + (int64_t)gy * W + gx] = c_n[oy + 1][ox + 1] - diag_sum;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      wa[j] = wb[j];
+      wb[j] = wc[j];
+    }
   }
 }
 
 }  // namespace
 
+// run_rows: output rows a warp covers (ceil(H / run_rows) runs an image).
 extern "C" int iseg_precompute(const void* img, int batch, int H, int W,
-                               float eps, void* out, void* stream) {
-  if (batch > 65535) return (int)cudaErrorInvalidValue;
-  if (batch > 0 && H > 0 && W > 0) {
-    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, batch);
-    precompute_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(img), H, W, eps, static_cast<float*>(out));
-  }
+                               float eps, int run_rows, void* out,
+                               void* stream) {
+  if (batch <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
+  if (run_rows < 1) return (int)cudaErrorInvalidValue;
+  const int strips = (W + SW - 1) / SW;
+  const int runs = (H + run_rows - 1) / run_rows;
+  const int64_t warps = (int64_t)batch * strips * runs;
+  if (warps > (int64_t)1 << 30) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+  precompute_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), H, W, eps, run_rows, strips, runs,
+      (int)warps, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

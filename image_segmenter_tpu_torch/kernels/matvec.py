@@ -41,15 +41,13 @@ on the whole padded stack.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels.precompute import NPLANES, _SHIFTS, \
     _box, _pad1, _sl, shifts
-from image_segmenter_tpu_torch.utils.backend import targets_cuda
+from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
 
 LAUNCHES = 0  # K3 launches in this process (read by chip_smoke.py)
 STACK_LAUNCHES = 0  # K5 launches in this process
@@ -85,11 +83,6 @@ def run_bounds(h: int, rows: int) -> list:
     return [(r0, min(r0 + rows, h)) for r0 in range(0, h, rows)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def matvec_planes(planes: torch.Tensor, img: torch.Tensor,
                   p: torch.Tensor) -> torch.Tensor:
     """L @ p. planes (B, 12, H, W), img (B, 3, H, W), p (B, H, W), all
@@ -114,9 +107,7 @@ def matvec_planes(planes: torch.Tensor, img: torch.Tensor,
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    index = p.device.index if p.device.index is not None \
-        else torch.cuda.current_device()
-    rows = run_rows(h, w, b, _sm_count(index))
+    rows = run_rows(h, w, b, sm_count(p.device))
     rc = lib.iseg_matvec(planes.data_ptr(), img.data_ptr(), p.data_ptr(),
                          b, h, w, rows, out.data_ptr(), stream)
     _build.check(rc, "matvec")

@@ -8,6 +8,17 @@ eps_w = max(eps, 1e-5 * trace), the LDL pivots' inverses and multipliers,
 the rank-deficiency flag, and diag(L) as a member sum. Output plane
 order: [i1, i2, i3, l21, l31, l32, diag, n, mu_r, mu_g, mu_b, rankdef].
 
+What bounds K2 on the H100 is its instruction count (about 690 unfused
+operations a pixel, 18 of them IEEE divisions; device memory sees 12 bytes
+in and 48 out). So in csrc/precompute.cu a warp walks down a strip of
+`STRIP` output columns, one row of windows a step, entirely in registers:
+a lane loads its own column, gets its neighbours' by warp shuffle, centres
+the 27 window values once for all three passes, and hands each member's
+diag term to the lane that owns the pixel by shuffle. The grid is strips x
+row runs x images; `run_rows` chooses the run so that the card holds no
+more than `WARPS_PER_SM` warps for each SM, one wave. The sums keep the
+plain version's order, so the kernel matches it bit for bit.
+
 `precompute_planes` routes by device: a CUDA tensor launches
 csrc/precompute.cu, a CPU tensor takes `precompute_planes_plain`, the
 JAX package's XLA formulation (solvers/matting._precompute with
@@ -23,12 +34,28 @@ import torch
 import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import _build
-from image_segmenter_tpu_torch.utils.backend import targets_cuda
+from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
 
 LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
 
 NPLANES = 12
 _DELTA = 1e-5  # f32 scale-aware ridge
+
+STRIP = 30           # output columns a warp of K2 walks down (SW there)
+# Warps of K2 an SM of the H100 holds at once (blocks of 4 warps, at most
+# 128 registers a thread): a grid of at most this many for each SM runs as
+# one wave
+WARPS_PER_SM = 16
+MIN_RUN_ROWS = 8     # a run recomputes 2 centre rows: never shorter than this
+
+
+def run_rows(h: int, w: int, b: int, sms: int) -> int:
+    """Output rows a warp of K2 covers: [0, H) is cut into equal runs, as
+    many as keep the grid within `WARPS_PER_SM` warps for each of the
+    card's `sms` SMs over `b` images of ceil(w / STRIP) strips."""
+    strips = -(-w // STRIP)
+    runs = max(1, WARPS_PER_SM * sms // (strips * b))
+    return min(h, max(MIN_RUN_ROWS, -(-h // runs)))
 
 
 def precompute_planes(img: torch.Tensor, epsilon: float) -> torch.Tensor:
@@ -44,9 +71,12 @@ def precompute_planes(img: torch.Tensor, epsilon: float) -> torch.Tensor:
     b, _, h, w = img.shape
     out = torch.empty((b, NPLANES, h, w), dtype=torch.float32,
                       device=img.device)
+    if out.numel() == 0:
+        return out
     lib = _build.library()
     stream = torch.cuda.current_stream(img.device).cuda_stream
-    rc = lib.iseg_precompute(img.data_ptr(), b, h, w, float(epsilon),
+    rows = run_rows(h, w, b, sm_count(img.device))
+    rc = lib.iseg_precompute(img.data_ptr(), b, h, w, float(epsilon), rows,
                              out.data_ptr(), stream)
     _build.check(rc, "precompute")
     LAUNCHES += 1

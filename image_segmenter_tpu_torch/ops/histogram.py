@@ -27,11 +27,18 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
-def u8_quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+def u8_quantile(x: torch.Tensor, q) -> torch.Tensor:
     """np.percentile(x, q*100) per image for uint8 data, from the
     histogram: linear interpolation at rank q*(N-1) on the cumulative
-    counts. (B,) float32."""
+    counts. (B,) float32 for one q; for a tuple or list of q, (len(q), B),
+    all from one histogram (one launch of K1)."""
     hist = histogram_u8(x)
+    if isinstance(q, (tuple, list)):
+        return torch.stack([_quantile_of_hist(hist, qi) for qi in q])
+    return _quantile_of_hist(hist, q)
+
+
+def _quantile_of_hist(hist: torch.Tensor, q: float) -> torch.Tensor:
     n = hist.sum(dim=-1)
     cum = cumsum(hist)  # cum[v] = # of elements <= v
     rank = q * (n - 1.0)

@@ -54,9 +54,10 @@ def _trimap_device(alpha_init: torch.Tensor) -> torch.Tensor:
     amin = a.amin(dim=(1, 2))
     amax = a.amax(dim=(1, 2))
     contrast = (amax - amin) > 50
-    # sort-free u8 percentiles
-    hi_t = torch.where(contrast, 220.0, HG.u8_quantile(alpha_init, 0.8))
-    lo_t = torch.where(contrast, 20.0, HG.u8_quantile(alpha_init, 0.2))
+    # sort-free u8 percentiles, both from one histogram
+    q_hi, q_lo = HG.u8_quantile(alpha_init, (0.8, 0.2))
+    hi_t = torch.where(contrast, 220.0, q_hi)
+    lo_t = torch.where(contrast, 20.0, q_lo)
     tri = torch.full_like(a, 0.5)
     tri = torch.where(a >= _bview(hi_t, a), 1.0, tri)
     tri = torch.where(a <= _bview(lo_t, a), 0.0, tri)

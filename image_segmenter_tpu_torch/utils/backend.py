@@ -8,12 +8,27 @@ from the kernel to the plain version.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
 def targets_cuda(t: torch.Tensor) -> bool:
     """Whether `t` is on a CUDA device (kernel) rather than the CPU (plain)."""
     return t.is_cuda
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card `device` names; the wrappers
+    size their kernels' grids by it."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _sm_count(index)
 
 
 def strict_f32() -> None:

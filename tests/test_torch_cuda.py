@@ -48,17 +48,117 @@ def test_histogram_kernel_exact(cuda, shape):
     assert torch.equal(KH.hist256(off), KH.hist256_plain(off))
 
 
+def _bincount(x):
+    return np.stack([np.bincount(r, minlength=256) for r in x.cpu().numpy()]) \
+        .astype(np.float32).reshape(x.shape[0], 256)
+
+
+@pytest.mark.parametrize("kind", ["random", "alpha-like", "all 0", "all 255",
+                                  "all 7", "words"])
+@pytest.mark.parametrize("shape", [(4, 2160 * 3840), (4, 576 * 1024),
+                                   (2, 37 * 53), (3, 2 * 32768 + 777), (1, 5),
+                                   (2, 0), (70, 4099)])
+def test_histogram_kernel_aggregation_exact(cuda, shape, kind):
+    """Bytes of 0 and 255 in registers, 16 and 4 equal bytes as one
+    addition: exact against np.bincount on the inputs each path is for, at
+    the main path's two sizes, ragged ones, an empty row and more rows than
+    the scratch first holds."""
+    from image_segmenter_tpu_torch.bench.micro_precompute_hist import \
+        alpha_like
+
+    rng = np.random.default_rng(11)
+    b, n = shape
+    if kind == "random":
+        xh = rng.integers(0, 256, shape, dtype=np.uint8)
+    elif kind == "alpha-like":
+        xh = alpha_like(b, n, rng)
+    elif kind == "words":
+        xh = np.repeat(rng.integers(0, 256, (b, -(-n // 4)), dtype=np.uint8),
+                       4, axis=1)[:, :n]
+    else:
+        xh = np.full(shape, int(kind.split()[1]), np.uint8)
+    x = torch.from_numpy(np.ascontiguousarray(xh)).to(cuda)
+    before = KH.LAUNCHES
+    got = KH.hist256(x)
+    assert KH.LAUNCHES == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, 256)
+    np.testing.assert_array_equal(got.cpu().numpy(), _bincount(x))
+    if n > 3:
+        off = x[0, 3:].reshape(1, -1)  # unaligned start
+        np.testing.assert_array_equal(KH.hist256(off).cpu().numpy(),
+                                      _bincount(off))
+
+
+def test_histogram_kernel_200_calls_back_to_back(cuda):
+    """The scratch is cleared by the kernel itself: 200 calls on changing
+    inputs and sizes without a synchronisation between them, each exact."""
+    g = _gen(cuda, 12)
+    sizes = [576 * 1024, 37 * 53, 1 << 20, 4099, 2160 * 3840]
+    xs = []
+    for i in range(20):
+        x = torch.randint(0, 256, (1 + i % 4, sizes[i % len(sizes)]),
+                          generator=g, device=cuda, dtype=torch.uint8)
+        if i % 3 == 0:
+            x[:, : x.shape[1] // 2] = 255 * (i % 2)
+        xs.append(x)
+    refs = [torch.from_numpy(_bincount(x)) for x in xs]
+    torch.cuda.synchronize()
+    before = KH.LAUNCHES
+    outs = [KH.hist256(xs[i % 20]) for i in range(200)]
+    torch.cuda.synchronize()
+    assert KH.LAUNCHES == before + 200
+    for i, out in enumerate(outs):
+        assert torch.equal(out.cpu(), refs[i % 20]), i
+    # the scratch of this stream is all zero again
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(KH._scratch_for(xs[0].device, stream, 1).abs().sum()) == 0
+
+
+def test_histogram_kernel_two_streams(cuda):
+    """Each stream has its own scratch: calls that overlap on two streams
+    stay exact."""
+    g = _gen(cuda, 13)
+    x1 = torch.randint(0, 256, (4, 2160 * 3840), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    x2 = torch.randint(0, 200, (4, 2160 * 3840), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    r1, r2 = _bincount(x1), _bincount(x2)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs1, outs2 = [], []
+    for _ in range(20):
+        outs1.append(KH.hist256(x1))
+        with torch.cuda.stream(side):
+            outs2.append(KH.hist256(x2))
+    torch.cuda.synchronize()
+    for o1, o2 in zip(outs1, outs2):
+        np.testing.assert_array_equal(o1.cpu().numpy(), r1)
+        np.testing.assert_array_equal(o2.cpu().numpy(), r2)
+
+
+# a ragged shape, a width that is no multiple of 4 over several strips, an
+# image narrower than a strip, one row, one pixel, and one image of the
+# main path
+@pytest.mark.parametrize("kind", ["random", "near-singular"])
 @pytest.mark.parametrize("shape", [(2, 3, 37, 53), (1, 3, 33, 130),
-                                   (2, 3, 64, 96)])
-def test_precompute_kernel_matches_plain(cuda, shape):
+                                   (2, 3, 64, 96), (1, 3, 203, 389),
+                                   (2, 3, 19, 7), (1, 3, 1, 64), (1, 3, 1, 1),
+                                   (1, 3, 576, 1024), (4, 3, 576, 1024)])
+def test_precompute_kernel_matches_plain(cuda, shape, kind):
     """Same order of operations, no FMA contraction: within 1e-4 (abs or
-    rel), in practice bit for bit."""
+    rel), and in fact bit for bit."""
     img = torch.rand(shape, generator=_gen(cuda, 2), device=cuda)
+    if kind == "near-singular":   # a flat colour plus 1e-4 noise
+        img = torch.tensor([0.3, 0.6, 0.45], device=cuda)[None, :, None, None] \
+            + 1e-4 * (img - 0.5)
+    before = KP.LAUNCHES
     got = KP.precompute_planes(img, 1e-7)
+    assert KP.LAUNCHES == before + 1
     ref = KP.precompute_planes_plain(img, 1e-7)
     err = (got - ref).abs()
     rel = err / ref.abs().clamp_min(1e-30)
     assert float(torch.minimum(err, rel).max()) < 1e-4
+    assert torch.equal(got, ref)
 
 
 # (2, 203, 389) spans several strips and several runs with a ragged edge;
