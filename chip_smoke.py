@@ -14,9 +14,10 @@ Phases, each raising (and exiting non-zero) on failure:
    PyTorch call computes the same function, that call's time; K5 and K6
    also against K3's output on the same operands, K7 against K4's, every
    variant of K8 against K1's. K3 must give the plain version's bits at
-   every shape; K4 is checked and timed on whole-number palettes
-   (its integer path, the main path's case), on fractional ones and on a
-   batch that mixes the two. K2 must give the plain version's bits too
+   every shape, and K6 too (also on a `valid` plane with holes); K4 and K7
+   are checked and timed on whole-number palettes (their integer path, the
+   main path's case), on fractional ones and on a batch that mixes the two.
+   K2 must give the plain version's bits too
    (also at a width that is no multiple of 4 and on an image narrower than
    a strip); K1 is exact on random, all-equal and alpha-like rows, over 200
    calls made back to back on changing inputs, and a profile shows that a
@@ -41,8 +42,9 @@ Phases, each raising (and exiting non-zero) on failure:
    full-resolution refine, and the synthetic case at 384 x 512 on the
    card and the CPU;
 8. quantize and histogram variants: bench/micro_quantize.run (K4 against
-   K7 at 4 x 2160 x 3840, bit-equal, and K4 back to back on a whole-number
-   palette, a fractional one and no palette entry at all) and bench/micro_hist_nibble.run (every
+   K7 at 4 x 2160 x 3840, bit-equal, and K4 and K7 back to back on a
+   whole-number palette, a fractional one, the two mixed and no palette
+   entry at all) and bench/micro_hist_nibble.run (every
    variant of K8 and K1, exact against np.bincount), the paths that launch
    K7 and K8;
 9. the colour quantizers of compat/color_simplify on photo-like RGBA with
@@ -459,28 +461,49 @@ def check_matvec_stack(label: str, dev) -> dict:
             "library_ms": None, "ms_back_to_back": b2b}
 
 
+def valid_with_holes(g, b: int, h: int, w: int, dev) -> torch.Tensor:
+    """A `valid` plane of 1 with scattered holes, a hole of a few rows and
+    columns, and a ragged right border."""
+    valid = (torch.rand((b, h, w), generator=g, device=dev) > 0.1).float()
+    valid[:, h // 3:h // 3 + 3, w // 4:w // 4 + 5] = 0.0
+    cut = torch.randint(0, min(w, 4) + 1, (h,), generator=g, device=dev)
+    valid[:, torch.arange(w, device=dev)[None, :] >= (w - cut)[:, None]] = 0.0
+    return valid
+
+
 def check_matvec_recompute(label: str, dev) -> dict:
-    """K6 against its plain version (its whole output) and against K3's
-    matvec inside the image."""
+    """K6 against its plain version bit for bit (its whole output), on a
+    `valid` plane of ones and on one with holes and a ragged border, and
+    against K3's matvec inside the image (ones)."""
     g = torch.Generator(device=dev).manual_seed(6)
     err_main = None
-    for b, h, w in MATVEC_SHAPES:
+    for b, h, w in MATVEC_SHAPES + MATVEC_STRIP_SHAPES:
         img, planes, p = _matvec_operands(g, dev, b, h, w)
-        static = K6.pack_static(torch.ones_like(p), img, planes[:, 0:6])
         p_pad = K6.pad_p(p)
-        got = K6.matvec_planes(p_pad, static)
-        ref = K6.matvec_planes_plain(p_pad, static)
-        k3 = KMV.matvec_planes(planes, img, p)
-        scale = k3.abs().max()
-        e = _rel_err(got, ref, scale)
-        e3 = _rel_err(got[:, :h, :w], k3, scale)
-        if not (e < 1e-5 and e3 < 1e-5):
-            fail(f"matvec_recompute {(b, h, w)}: max|diff|/max|ref| {e} "
-                 f"against plain, {e3} against K3 (bound 1e-5)")
-        if err_main is None:
-            err_main = float((got - ref).abs().max())
-            err_k3 = e3
-            args = (p_pad, static)
+        for masked in (False, True):
+            valid = valid_with_holes(g, b, h, w, dev) if masked \
+                else torch.ones_like(p)
+            static = K6.pack_static(valid, img, planes[:, 0:6])
+            got = K6.matvec_planes(p_pad, static)
+            ref = K6.matvec_planes_plain(p_pad, static)
+            # the kernel keeps the plain version's order of every sum and
+            # the library is built without FMA contraction: the same bits
+            if not torch.equal(got, ref):
+                fail(f"matvec_recompute {(b, h, w)} masked={masked}: not the "
+                     f"plain version's bits (max|diff| "
+                     f"{float((got - ref).abs().max())})")
+            if masked:
+                continue
+            k3 = KMV.matvec_planes(planes, img, p)
+            scale = k3.abs().max()
+            e3 = _rel_err(got[:, :h, :w], k3, scale)
+            if not e3 < 1e-5:
+                fail(f"matvec_recompute {(b, h, w)}: max|diff|/max|ref| {e3} "
+                     "against K3 (bound 1e-5)")
+            if err_main is None:
+                err_main = float((got - ref).abs().max())
+                err_k3 = e3
+                args = (p_pad, static)
     ms = median_ms(lambda: K6.matvec_planes(*args))
     b2b = median_ms(lambda: K6.matvec_planes(*args), inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: K6.matvec_planes_plain(*args))
@@ -492,10 +515,13 @@ def check_matvec_recompute(label: str, dev) -> dict:
     halo_px = BATCH * (MH + 4) * (MW + 4)
     out_px = BATCH * K6._out_rows(args[0].shape[1]) * args[0].shape[2]
     bd = bound((11 * halo_px + out_px) * 4, RECOMPUTE_OPS * px)
-    print(f"[kernels] matvec_recompute (4, 10, {args[1].shape[2]}, "
-          f"{args[1].shape[3]}) f32: within 1e-5 of max|ref| of plain and of "
-          f"K3 ({err_k3:.3g}), max|diff| {err_main:.3g}; kernel {ms:.4f} ms "
-          f"one launch between events, {b2b:.4f} back to back, "
+    hp, wp = args[1].shape[2:]
+    print(f"[kernels] matvec_recompute (4, 10, {hp}, {wp}) f32: the plain "
+          f"version's bits at every shape, valid of ones and with holes; "
+          f"within 1e-5 of max|ref| of K3 ({err_k3:.3g}); kernel {ms:.4f} ms "
+          f"one launch between events, {b2b:.4f} back to back (strip "
+          f"{K6.STRIP}, runs of "
+          f"{K6.run_rows(K6._out_rows(hp), wp, BATCH, _sms(dev))} rows), "
           f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
           f"{bd['bound_by']} ({label})")
     return {"max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bd,
@@ -563,46 +589,71 @@ def check_quantize(label: str, dev) -> dict:
 
 
 def check_quantize_flat(label: str, dev) -> dict:
-    """K7 against its plain version and against K4 on the same operands:
-    the bench shape, a ragged one (the byte path) and a small one whose
-    rows are a multiple of 16 (the 16-byte path)."""
+    """K7 against its plain version and against K4 on the same operands,
+    on whole-number palettes (K4's integer path), fractional ones and a
+    batch that mixes them image by image, each with exact ties: the bench
+    shape, a ragged one (the byte path), small ones whose rows are a
+    multiple of 16 (the 16-byte path, also with 1 entry and none) and 256
+    entries."""
     g = torch.Generator(device=dev).manual_seed(7)
     for b, h, w, k_real in [(BATCH, H4K, W4K, 16), (2, *RAGGED, 11),
-                            (3, 48, 50, 16)]:
+                            (3, 48, 50, 16), (4, 48, 50, 1), (2, 16, 16, 0),
+                            (2, 64, 100, 256)]:
+        k_max = max(16, k_real)
         rgb = torch.randint(0, 256, (b, h, w, 3), generator=g,
                             dtype=torch.uint8, device=dev)
         alpha = torch.rand((b, h, w), generator=g, device=dev) > 0.3
-        pal = torch.randint(0, 256, (b, 16, 3), generator=g,
-                            device=dev).to(torch.float32)
-        pal[:, 5] = pal[:, 2]  # exact ties: the first index must win
+        whole = torch.randint(0, 256, (b, k_max, 3), generator=g,
+                              device=dev).to(torch.float32)
+        frac = torch.rand((b, k_max, 3), generator=g, device=dev) * 255
+        mixed = whole.clone()
+        mixed[1::2] = frac[1::2]
         thr = torch.tensor([30.0, 10.0, -1.0, 30.0][:b], device=dev)
-        got = K7.quantize_map_flat(rgb, alpha, pal, k_real, thr)
-        if not torch.equal(got, K7.quantize_map_flat_plain(rgb, alpha, pal,
-                                                           k_real, thr)):
-            fail(f"quantize_flat {(b, h, w)} differs from plain")
-        if not torch.equal(got, KQ.quantize_map(rgb, alpha, pal, k_real, thr)):
-            fail(f"quantize_flat {(b, h, w)} differs from K4")
+        for name, pal in (("whole", whole), ("fractional", frac),
+                          ("mixed", mixed)):
+            pal[:, 5] = pal[:, 2]  # exact ties: the first index must win
+            rgb[:, 0, 0] = pal[:, 2].to(torch.uint8)
+            got = K7.quantize_map_flat(rgb, alpha, pal, k_real, thr)
+            if not torch.equal(got, K7.quantize_map_flat_plain(
+                    rgb, alpha, pal, k_real, thr)):
+                fail(f"quantize_flat {(b, h, w)} k {k_real} {name} palette "
+                     "differs from plain")
+            if not torch.equal(got, KQ.quantize_map(rgb, alpha, pal, k_real,
+                                                    thr)):
+                fail(f"quantize_flat {(b, h, w)} k {k_real} {name} palette "
+                     "differs from K4")
         if h == H4K:
             planes = K7.split_planes(rgb)
-            args = (planes, alpha.reshape(b, h * w), pal, k_real, thr)
-            whole = (rgb, alpha, pal, k_real, thr)
+            args = (planes, alpha.reshape(b, h * w), whole, k_real, thr)
+            args_frac = (planes, alpha.reshape(b, h * w), frac, k_real, thr)
+            whole_frame = (rgb, alpha, whole, k_real, thr)
     ms = median_ms(lambda: K7.quantize_planes(*args))
     b2b = median_ms(lambda: K7.quantize_planes(*args), inner=BACK_TO_BACK)
+    ms_frac = median_ms(lambda: K7.quantize_planes(*args_frac))
+    b2b_frac = median_ms(lambda: K7.quantize_planes(*args_frac),
+                         inner=BACK_TO_BACK)
     plain_ms = median_ms(lambda: K7.quantize_planes_plain(*args))
-    function_ms = median_ms(lambda: K7.quantize_map_flat(*whole))
+    function_ms = median_ms(lambda: K7.quantize_map_flat(*whole_frame))
     # K4's work: 3 + 1 bytes read and 3 written per pixel, 9 operations
-    # per pixel and palette entry and 8 for the brightness test
+    # per pixel and palette entry and 8 for the brightness test. That
+    # reckoning is the float path's; the integer path does about 3
+    # operations an entry, so for it the bytes alone are the floor
     px = BATCH * H4K * W4K
     bd = bound(7 * px + BATCH * 16 * 3 * 4, (9 * 16 + 8) * px)
+    bytes_ms = bound(7 * px + BATCH * 16 * 3 * 4, 0)["bound_ms"]
     print(f"[kernels] quantize_flat planes (3, 4, {H4K * W4K}) u8 k=16: "
-          f"bit-equal to plain and to K4; kernel {ms:.4f} ms one launch "
-          f"between events, {b2b:.4f} back to back, with the split "
+          f"bit-equal to plain and to K4 on whole-number, fractional and "
+          f"mixed palettes; kernel on whole-number palettes {ms:.4f} ms one "
+          f"launch between events, {b2b:.4f} back to back; on fractional "
+          f"palettes {ms_frac:.4f} and {b2b_frac:.4f} ms; with the split "
           f"into planes and the stack back {function_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
-          f"{bd['bound_by']} ({label})")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
+          f"{bd['bound_by']} (the float path's count; the bytes alone, the "
+          f"integer path's floor, {bytes_ms:.4f} ms) ({label})")
+    return {"max_abs_err": 0.0, "ms": ms, "ms_fractional": ms_frac,
+            "plain_ms": plain_ms, **bd, "bytes_bound_ms": bytes_ms,
             "library_ms": None, "function_ms": function_ms,
-            "ms_back_to_back": b2b}
+            "ms_back_to_back": b2b, "ms_fractional_back_to_back": b2b_frac}
 
 
 def check_hist_variants(label: str, dev) -> dict:
@@ -988,13 +1039,17 @@ def run_micros(label: str) -> dict:
           f"bit-equal: {res['equal']} ({label})")
     if not res["equal"]:
         fail("micro_quantize: K7's output differs from K4's")
-    print(f"[micros] quantize, K4 on the same frame, ms back to back: a "
-          f"whole-number palette {res['k4_whole_ms']:.4f}, a fractional one "
-          f"{res['k4_fractional_ms']:.4f}, no palette entry "
-          f"{res['k4_k0_ms']:.4f}; the plain version's bytes: "
-          f"{res['paths_exact']} ({label})")
+    for k in ("k4", "k7"):
+        print(f"[micros] quantize, {k.upper()} on the same frame "
+              f"({'interleaved' if k == 'k4' else 'planes'}), ms back to back: "
+              f"a whole-number palette {res[k + '_whole_ms']:.4f}, a "
+              f"fractional one {res[k + '_fractional_ms']:.4f}, the two mixed "
+              f"{res[k + '_mixed_ms']:.4f}, no palette entry "
+              f"{res[k + '_k0_ms']:.4f}; the plain version's bytes: "
+              f"{res[k + '_paths_exact']} ({label})")
     if not res["paths_exact"]:
-        fail("micro_quantize: K4 gives other bytes than its plain version")
+        fail("micro_quantize: K4 or K7 gives other bytes than its plain "
+             "version")
     rows = BENCH_HIST.run("cuda", H4K * W4K, BATCH)
     torch.cuda.synchronize()
     by_input = {}

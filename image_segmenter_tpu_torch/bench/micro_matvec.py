@@ -15,6 +15,11 @@ after one warm-up matvec, and each variant's final q is compared with the
 plain loop's (the drift). At one small image that loop is bound by the host
 (three launches an iteration), so each form is also timed over `LAUNCHES`
 matvecs of one q back to back, median of `REPS`: the kernel's own time.
+K6's form pads q and slices its output; its row also holds K6 alone on an
+operand padded once (back to back, whether it has the plain version's
+bits, and the sha256 of its output). The script calls the kernels' public
+entry points only, so one copy of it times any tree of the package
+(PYTHONPATH set to each in turn, in one call).
 The TPU tile sweeps of the JAX bench are TPU
 schedule and have no counterpart.
 
@@ -23,6 +28,7 @@ schedule and have no counterpart.
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import sys
 import time
@@ -116,7 +122,8 @@ def run(device="cuda", b: int = 4, h: int = 576, w: int = 1024,
         inner: int = 50) -> list:
     """One row per variant: {"name", "ms_per_matvec", "ms_back_to_back",
     "drift"}; drift is max|q - q_plain| / max|q_plain| after `inner`
-    fed-back matvecs."""
+    fed-back matvecs. K6's row also has "ms_kernel_back_to_back",
+    "kernel_bit_equal" and "kernel_sha" (`recompute_alone`)."""
     imgs, ps, planes, stack, static = setup(device, b, h, w)
     rows, ref = [], None
     for name, mv in variants(imgs, planes, stack, static).items():
@@ -126,7 +133,21 @@ def run(device="cuda", b: int = 4, h: int = 576, w: int = 1024,
         drift = float((out - ref).abs().max() / (ref.abs().max() + 1e-30))
         rows.append({"name": name, "ms_per_matvec": ms, "drift": drift,
                      "ms_back_to_back": _back_to_back(mv, ps)})
+    rows[-1].update(recompute_alone(ps, static))
     return rows
+
+
+def recompute_alone(ps: torch.Tensor, static: torch.Tensor) -> dict:
+    """K6 alone on an operand padded once: its time back to back, whether
+    it gives the plain version's bits, and the sha256 of its output."""
+    p_pad = K6.pad_p(ps)
+    out = K6.matvec_planes(p_pad, static)
+    same = torch.equal(out, K6.matvec_planes_plain(p_pad, static))
+    return {"ms_kernel_back_to_back": _back_to_back(
+                lambda q: K6.matvec_planes(q, static), p_pad),
+            "kernel_bit_equal": bool(same),
+            "kernel_sha": hashlib.sha256(
+                out.cpu().numpy().tobytes()).hexdigest()[:16]}
 
 
 def main(argv) -> None:
@@ -134,10 +155,16 @@ def main(argv) -> None:
     h, w = (int(v) for v in argv[2:4]) if len(argv) > 3 else (576, 1024)
     for b in (1, 4):
         for row in run(device, b=b, h=h, w=w):
+            alone = ""
+            if "ms_kernel_back_to_back" in row:
+                alone = (f"; alone {row['ms_kernel_back_to_back']:8.4f} back "
+                         f"to back, plain's bits {row['kernel_bit_equal']}, "
+                         f"sha {row['kernel_sha']}")
             print(f"{row['name']:24s} {b}x{h}x{w} {row['ms_per_matvec']:8.4f} "
                   f"ms/matvec fed back, {row['ms_back_to_back']:8.4f} back to "
-                  f"back  50-iter drift vs plain {row['drift']:.2e}",
+                  f"back  50-iter drift vs plain {row['drift']:.2e}{alone}",
                   flush=True)
+    print(f"package {K6.__file__}", file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

@@ -11,12 +11,16 @@ frame into planes and the stack back, the layout cost the study is about.
 The outputs must be bit-equal. The TPU bench's count of relayout copies in
 the compiled HLO has no counterpart and is dropped.
 
-K4 is also timed on the same frame with the whole-number palette (its
-integer path), with a fractional one (its separately rounded float path,
-by the kernel's own choice) and with no palette entry at all (k_real 0:
-what the loads, the brightness test and the stores take). Each must give
-the plain version's bytes; times are of `INNER` launches back to back, so
-that the host's gap between two launches is not in them.
+K4 and K7 (on planes) are also timed on the same frame with the
+whole-number palette (their integer path), with a fractional one (the
+separately rounded float path, by the kernel's own choice), with a batch
+that mixes the two image by image, and with no palette entry at all
+(k_real 0: what the loads, the brightness test and the stores take). Each
+must give the plain version's bytes; times are of `INNER` launches back to
+back, so that the host's gap between two launches is not in them. The
+sha256 of each output lets two trees be compared byte for byte: the script
+calls the kernels' public entry points only, so one copy of it times any
+tree of the package (PYTHONPATH set to each in turn, in one call).
 
 Inputs follow the TPU bench: numpy's default_rng(5), uniform colours, 80 %
 opaque alpha, one random 16-colour palette for every image, brightness
@@ -28,6 +32,7 @@ CPU run checks the plumbing only and its times are the host's.
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import sys
 import time
@@ -78,31 +83,61 @@ def median_ms(fn, on_card: bool, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def k4_paths(rgb, alpha, centers, thr, reps: int = 10) -> dict:
-    """{"k4_whole_ms", "k4_fractional_ms", "k4_k0_ms", "paths_exact"}: K4
-    on one frame by palette kind, `INNER` launches back to back, each held
-    to the plain version's bytes."""
+def sha(t: torch.Tensor) -> str:
+    data = t.cpu().contiguous().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def palettes(centers) -> dict:
+    """name -> (palette, k_real): the whole-number palette, a fractional
+    one, a batch that mixes the two image by image, no entry at all."""
     g = torch.Generator(device="cpu").manual_seed(6)
     frac = (centers.cpu() + torch.rand(centers.shape, generator=g) * 0.9
             ).clamp(0.0, 255.0).to(centers.device)
-    cases = {"whole": (centers, K), "fractional": (frac, K),
-             "k0": (centers, 0)}
+    mixed = centers.clone()
+    mixed[1::2] = frac[1::2]
+    return {"whole": (centers, K), "fractional": (frac, K),
+            "mixed": (mixed, K), "k0": (centers, 0)}
+
+
+def _paths(prefix, call, plain, centers, on_card, reps) -> dict:
     res, exact = {}, True
-    for name, (pal, k_real) in cases.items():
-        def call():
-            return K4.quantize_map(rgb, alpha, pal, k_real, thr)
-        exact = exact and bool(torch.equal(
-            call(), K4.quantize_map_plain(rgb, alpha, pal, k_real, thr)))
-        res[f"k4_{name}_ms"] = median_ms(call, rgb.is_cuda, reps, INNER)
-    res["paths_exact"] = exact
+    for name, (pal, k_real) in palettes(centers).items():
+        out = call(pal, k_real)
+        exact = exact and bool(torch.equal(out, plain(pal, k_real)))
+        res[f"{prefix}_{name}_ms"] = median_ms(lambda: call(pal, k_real),
+                                               on_card, reps, INNER)
+        res[f"{prefix}_{name}_sha"] = sha(out)
+    res[f"{prefix}_paths_exact"] = exact
     return res
+
+
+def k4_paths(rgb, alpha, centers, thr, reps: int = 10) -> dict:
+    """{"k4_<kind>_ms", "k4_<kind>_sha", "k4_paths_exact"} for the kinds of
+    `palettes`: K4 on one frame, `INNER` launches back to back, each held to
+    the plain version's bytes."""
+    return _paths("k4", lambda pal, k: K4.quantize_map(rgb, alpha, pal, k,
+                                                       thr),
+                  lambda pal, k: K4.quantize_map_plain(rgb, alpha, pal, k,
+                                                       thr),
+                  centers, rgb.is_cuda, reps)
+
+
+def k7_paths(planes, alpha_flat, centers, thr, reps: int = 10) -> dict:
+    """The same for K7 on planes that already exist: the kernel alone."""
+    return _paths("k7", lambda pal, k: K7.quantize_planes(
+                      planes, alpha_flat, pal, k, thr),
+                  lambda pal, k: K7.quantize_planes_plain(
+                      planes, alpha_flat, pal, k, thr),
+                  centers, planes.is_cuda, reps)
 
 
 def run(device="cuda", b: int = 4, h: int = 2160, w: int = 3840,
         reps: int = 10) -> dict:
     """{"k4_ms", "k7_kernel_ms", "k7_function_ms", "split_ms", "stack_ms",
-    "equal", "k4_launches", "k7_launches"} and `k4_paths`' keys: times are
-    medians of `reps`; `equal` says whether K7's output has K4's bytes."""
+    "equal", "k4_launches", "k7_launches"} and the keys of `k4_paths` and
+    `k7_paths`: times are medians of `reps`; `equal` says whether K7's
+    output has K4's bytes."""
     rgb, alpha, centers, thr = setup(device, b, h, w)
     on_card = rgb.is_cuda
     n4, n7 = K4.LAUNCHES, K7.LAUNCHES
@@ -129,6 +164,8 @@ def run(device="cuda", b: int = 4, h: int = 2160, w: int = 3840,
         "equal": equal,
     }
     res.update(k4_paths(rgb, alpha, centers, thr, reps))
+    res.update(k7_paths(planes, alpha_flat, centers, thr, reps))
+    res["paths_exact"] = res["k4_paths_exact"] and res["k7_paths_exact"]
     res["k4_launches"] = K4.LAUNCHES - n4
     res["k7_launches"] = K7.LAUNCHES - n7
     return res
@@ -137,13 +174,14 @@ def run(device="cuda", b: int = 4, h: int = 2160, w: int = 3840,
 def main(argv) -> None:
     device = argv[1] if len(argv) > 1 else "cuda"
     h, w, b = (int(v) for v in argv[2:5]) if len(argv) > 4 else (2160, 3840, 4)
+    print(f"[micro_quantize] package {K7.__file__}", flush=True)
     res = run(device, b, h, w)
     for key, val in res.items():
         print(f"[micro_quantize] {key}: {val}", flush=True)
     if not res["equal"]:
         raise SystemExit("K7's output differs from K4's")
     if not res["paths_exact"]:
-        raise SystemExit("K4 gives other bytes than its plain version")
+        raise SystemExit("K4 or K7 gives other bytes than its plain version")
 
 
 if __name__ == "__main__":

@@ -52,11 +52,13 @@ SIGNATURES = {
     #  out f32 (B, H, W), stream)
     "iseg_matvec_stack": [_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P],
     # (p_pad f32 (B, Hp, Wp), static f32 (B, 10, Hp, Wp), B, Hp, Wp, Ho,
-    #  out f32 (B, Ho, Wp), stream)
-    "iseg_matvec_recompute": [_P, _P, _I32, _I32, _I32, _I32, _P, _P],
+    #  rows a run, out f32 (B, Ho, Wp), stream)
+    "iseg_matvec_recompute": [_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P],
     # (planes u8 (3, B, H*W), alpha u8 (B, H*W), centers f32 (B, k_max, 3),
-    #  thr f32 (B,), B, H*W, k_max, k_real, out u8 (3, B, H*W), stream)
-    "iseg_quantize_flat": [_P, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P],
+    #  thr f32 (B,), B, H*W, k_max, k_real, blocks an image,
+    #  out u8 (3, B, H*W), stream)
+    "iseg_quantize_flat": [_P, _P, _P, _P, _I32, _I64, _I32, _I32, _I32, _P,
+                           _P],
     # (x u8 (B, n), n, B, step, out int32 (B, 256), stream)
     "iseg_hist_variant": [_P, _I64, _I32, _I32, _P, _P],
 }

@@ -4,88 +4,72 @@
 // body image_segmenter_tpu/kernels/pallas_quantize.py:_kernel): the flat
 // planar blocking the TPU study held against the native (H, W) blocks.
 //
-// Per pixel, K4's arithmetic exactly: squared distance
-// (r-cr)^2 + (g-cg)^2 + (b-cb)^2 to each of the first k_real palette
-// entries, first minimum by strict <, and the winning colour where
-// alpha > 0 and (r+g+b) * (1/3) > thr, else 0. Every multiply and add is
-// an explicitly rounded intrinsic, so the result is bit-equal to K4 and to
-// the plain PyTorch version for any float palette.
+// Per pixel, K4's arithmetic exactly (palette_map.cuh): squared distance
+// to each of the first k_real palette entries, first minimum by strict <,
+// and the winning colour where alpha > 0 and (r+g+b) * (1/3) > thr, else
+// 0. Bit-equal to K4 and to the plain PyTorch version for any float
+// palette.
 //
-// Bound on this card: K4's. 4 bytes read and 3 written per pixel against
-// 16 x 9 + 8 operations per pixel: on paper the operations (about 75 us at
-// 4 x 2160 x 3840) just ahead of the bytes (about 69 us).
+// Bound on this card: K4's. 4 bytes read and 3 written per pixel (232 MB
+// at 4 x 2160 x 3840, 69 us of HBM time). A float palette, rounded where
+// the plain version rounds, costs about 11 instructions a pixel and entry
+// and the instructions set the time; a whole-number palette takes K4's
+// integer keys, three an entry, and the bytes come close to setting it.
 //
-// Design: what the study varies is the layout. The planes are contiguous
-// bytes, so a thread takes 16 pixels with one 16-byte load per plane and
-// writes them with one 16-byte store per plane: a warp moves whole 512-byte
-// lines, where K4's threads pick 3-byte pixels out of an interleaved frame.
-// The palette sits in shared memory and is read as a broadcast. (Carrying
-// eight pixels through one palette loop, so that an entry is read once
-// for the eight, measured slower, 0.44-0.46 ms against 0.40-0.43 ms at
-// 4 x 2160 x 3840 on an H100 at 700 W: the palette reads are not what
-// bounds the map.) The TPU's 256 x 128 blocks and zero padding do not
-// cross over: the 16-byte path needs a row length that is a multiple of
-// 16 and 16-byte aligned planes
-// (every row of every plane then starts aligned); any other size or
-// alignment takes the byte path, one pixel per thread and step, which has
-// no tail to pad. The split of the interleaved frame into planes and the
-// stack back are copies made by the wrapper in PyTorch.
+// Design: the planes are contiguous bytes, so a thread takes 16 pixels
+// with one 16-byte load from each of r, g, b and a, packs each pixel as
+// r | g << 8 | b << 16 with two __byte_perm a pair of pixels, runs K4's
+// search (map_pixels) over groups of kGroup pixels, so that each palette
+// read from shared memory serves the group, scatters the colour bytes back
+// into three 16-byte words and stores one per plane: a warp moves whole
+// 512-byte lines. The 16-byte path needs a row length that is a multiple
+// of 16 and 16-byte aligned planes (every row of every plane then starts
+// aligned); any other size or alignment takes the byte path, one pixel a
+// thread and step through the same search. The grid is the wrapper's:
+// for each image, blocks that stride over its pixels
+// (kernels/quantize_flat.py, `grid_blocks`). The split of the interleaved
+// frame into planes and the stack back are copies made by the wrapper in
+// PyTorch.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "palette_map.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 256;
+constexpr int kGroup = 8;   // pixels a palette loop serves (4, 8 or 16)
+static_assert(kGroup % 4 == 0 && 16 % kGroup == 0, "whole words a group");
 
-struct Pixel {
-  uint8_t r, g, b;
-};
-
-__device__ __forceinline__ Pixel map_pixel(unsigned ri, unsigned gi,
-                                           unsigned bi, unsigned ai,
-                                           const float* pal, int k_use,
-                                           float t) {
-  const float r = (float)ri, g = (float)gi, bl = (float)bi;
-  float best_d = INFINITY, br = 0.f, bg = 0.f, bb = 0.f;
-  for (int k = 0; k < k_use; ++k) {
-    const float cr = pal[3 * k], cg = pal[3 * k + 1], cb = pal[3 * k + 2];
-    const float dr = __fsub_rn(r, cr);
-    const float dg = __fsub_rn(g, cg);
-    const float db = __fsub_rn(bl, cb);
-    const float d = __fadd_rn(__fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dg, dg)),
-                              __fmul_rn(db, db));
-    if (d < best_d) {
-      best_d = d;
-      br = cr;
-      bg = cg;
-      bb = cb;
-    }
-  }
-  const float bright =
-      __fmul_rn(__fadd_rn(__fadd_rn(r, g), bl), 1.0f / 3.0f);
-  const bool fit = ai > 0 && bright > t;
-  // float -> int32 truncates, int32 -> u8 wraps: the Pallas kernel's casts
-  Pixel out;
-  out.r = fit ? (uint8_t)(int)br : 0;
-  out.g = fit ? (uint8_t)(int)bg : 0;
-  out.b = fit ? (uint8_t)(int)bb : 0;
-  return out;
+// Pixels 4 w .. 4 w + 3 of a group from one word of each colour plane,
+// each packed r | g << 8 | b << 16 (the top byte repeats r and is ignored).
+template <int P>
+__device__ __forceinline__ void pack4(uint32_t r, uint32_t g, uint32_t b,
+                                      uint32_t (&pix)[P], int w) {
+  const uint32_t lo = __byte_perm(r, g, 0x5140);  // r0 g0 r1 g1
+  const uint32_t hi = __byte_perm(r, g, 0x7362);  // r2 g2 r3 g3
+  pix[4 * w] = __byte_perm(lo, b, 0x0410);        // r0 g0 b0 .
+  pix[4 * w + 1] = __byte_perm(lo, b, 0x0532);    // r1 g1 b1 .
+  pix[4 * w + 2] = __byte_perm(hi, b, 0x0610);    // r2 g2 b2 .
+  pix[4 * w + 3] = __byte_perm(hi, b, 0x0732);    // r3 g3 b3 .
 }
 
-__device__ __forceinline__ unsigned byte_of(const uint4& v, int j) {
-  const unsigned w = j < 4 ? v.x : j < 8 ? v.y : j < 12 ? v.z : v.w;
-  return (w >> (8 * (j & 3))) & 0xFFu;
-}
-
-__device__ __forceinline__ void put_byte(uint4& v, int j, unsigned b) {
-  const unsigned s = b << (8 * (j & 3));
-  if (j < 4) v.x |= s;
-  else if (j < 8) v.y |= s;
-  else if (j < 12) v.z |= s;
-  else v.w |= s;
+// The inverse for output colours c = r | g << 8 | b << 16: one word of
+// each plane for pixels 4 w .. 4 w + 3.
+template <int P>
+__device__ __forceinline__ void unpack4(const uint32_t (&c)[P], int w,
+                                        uint32_t& r, uint32_t& g,
+                                        uint32_t& b) {
+  const uint32_t c0 = c[4 * w], c1 = c[4 * w + 1], c2 = c[4 * w + 2],
+                 c3 = c[4 * w + 3];
+  const uint32_t lo = __byte_perm(c0, c1, 0x5140);   // r0 r1 g0 g1
+  const uint32_t hi = __byte_perm(c2, c3, 0x5140);   // r2 r3 g2 g3
+  r = __byte_perm(lo, hi, 0x5410);
+  g = __byte_perm(lo, hi, 0x7632);
+  const uint32_t blo = __byte_perm(c0, c1, 0x7362);  // b0 b1 . .
+  const uint32_t bhi = __byte_perm(c2, c3, 0x7362);  // b2 b3 . .
+  b = __byte_perm(blo, bhi, 0x5410);
 }
 
 // planes (3, B, hw) u8, alpha (B, hw) u8 -> out (3, B, hw) u8
@@ -96,11 +80,10 @@ quantize_flat_kernel(const uint8_t* __restrict__ planes,
                      const float* __restrict__ centers,
                      const float* __restrict__ thr, int batch, int64_t hw,
                      int k_max, int k_use, uint8_t* __restrict__ out) {
-  __shared__ float pal[kMaxK * 3];
+  __shared__ Palette pal;
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < k_use * 3; i += kThreads)
-    pal[i] = centers[(int64_t)b * k_max * 3 + i];
-  __syncthreads();
+  const bool whole =
+      stage_palette(pal, centers + (int64_t)b * k_max * 3, k_use);
   const float t = thr[b];
   const int64_t plane = (int64_t)batch * hw;
   const int64_t row = (int64_t)b * hw;
@@ -115,52 +98,71 @@ quantize_flat_kernel(const uint8_t* __restrict__ planes,
   const int64_t stride = (int64_t)gridDim.x * kThreads;
 
   if constexpr (kVec) {
+    constexpr int kWords = kGroup / 4;   // words of a plane a group takes
     const int64_t nvec = hw / 16;
     for (int64_t i = first; i < nvec; i += stride) {
       const uint4 vr = reinterpret_cast<const uint4*>(pr)[i];
       const uint4 vg = reinterpret_cast<const uint4*>(pg)[i];
       const uint4 vb = reinterpret_cast<const uint4*>(pb)[i];
       const uint4 va = reinterpret_cast<const uint4*>(pa)[i];
-      uint4 orr = make_uint4(0, 0, 0, 0), og = orr, ob = orr;
+      const uint32_t wr[4] = {vr.x, vr.y, vr.z, vr.w};
+      const uint32_t wg[4] = {vg.x, vg.y, vg.z, vg.w};
+      const uint32_t wb[4] = {vb.x, vb.y, vb.z, vb.w};
+      const uint32_t wa[4] = {va.x, va.y, va.z, va.w};
+      uint32_t orr[4], og[4], ob[4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const Pixel p = map_pixel(byte_of(vr, j), byte_of(vg, j),
-                                  byte_of(vb, j), byte_of(va, j), pal, k_use,
-                                  t);
-        put_byte(orr, j, p.r);
-        put_byte(og, j, p.g);
-        put_byte(ob, j, p.b);
+      for (int grp = 0; grp < 16 / kGroup; ++grp) {
+        uint32_t pix[kGroup], col[kGroup];
+        bool opaque[kGroup];
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          const int word = grp * kWords + w;
+          pack4<kGroup>(wr[word], wg[word], wb[word], pix, w);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            opaque[4 * w + j] = ((wa[word] >> (8 * j)) & 0xFFu) != 0;
+        }
+        map_pixels<kGroup>(pal, k_use, whole, t, pix, opaque, col);
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          const int word = grp * kWords + w;
+          unpack4<kGroup>(col, w, orr[word], og[word], ob[word]);
+        }
       }
-      reinterpret_cast<uint4*>(qr)[i] = orr;
-      reinterpret_cast<uint4*>(qg)[i] = og;
-      reinterpret_cast<uint4*>(qb)[i] = ob;
+      reinterpret_cast<uint4*>(qr)[i] =
+          make_uint4(orr[0], orr[1], orr[2], orr[3]);
+      reinterpret_cast<uint4*>(qg)[i] = make_uint4(og[0], og[1], og[2], og[3]);
+      reinterpret_cast<uint4*>(qb)[i] = make_uint4(ob[0], ob[1], ob[2], ob[3]);
     }
   } else {
     for (int64_t i = first; i < hw; i += stride) {
-      const Pixel p = map_pixel(pr[i], pg[i], pb[i], pa[i], pal, k_use, t);
-      qr[i] = p.r;
-      qg[i] = p.g;
-      qb[i] = p.b;
+      const uint32_t pix[1] = {(uint32_t)pr[i] | ((uint32_t)pg[i] << 8)
+                               | ((uint32_t)pb[i] << 16)};
+      const bool opaque[1] = {pa[i] != 0};
+      uint32_t col[1];
+      map_pixels<1>(pal, k_use, whole, t, pix, opaque, col);
+      qr[i] = (uint8_t)col[0];
+      qg[i] = (uint8_t)(col[0] >> 8);
+      qb[i] = (uint8_t)(col[0] >> 16);
     }
   }
 }
 
 }  // namespace
 
+// blocks: blocks a launch gives each image (>= 1); they stride over its
+// pixels.
 extern "C" int iseg_quantize_flat(const void* planes, const void* alpha,
                                   const void* centers, const void* thr,
                                   int batch, int64_t hw, int k_max, int k_real,
-                                  void* out, void* stream) {
+                                  int blocks, void* out, void* stream) {
   int k_use = k_real < k_max ? k_real : k_max;
   if (k_use < 0) k_use = 0;
-  if (k_use > kMaxK || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (k_use > kMaxK || batch > 65535 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   if (hw > 0 && batch > 0) {
     const bool vec = hw % 16 == 0 && (uintptr_t)planes % 16 == 0 &&
                      (uintptr_t)alpha % 16 == 0 && (uintptr_t)out % 16 == 0;
-    // one step of the loop per thread where the grid allows it
-    const int64_t items = vec ? hw / 16 : (hw + 3) / 4;
-    int64_t blocks = (items + kThreads - 1) / kThreads;
-    if (blocks > 8192) blocks = 8192;
     dim3 grid((unsigned)blocks, (unsigned)batch);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto launch = vec ? quantize_flat_kernel<true> : quantize_flat_kernel<false>;

@@ -13,6 +13,18 @@ validity; takes the non-separable 9-shift box; and accumulates
 box(b) + sum_c box(a_c) * img_c in that order. The two agree to float32
 rounding, not to bits.
 
+What bounds K6 on the H100 is device memory (11 planes read and one
+written, 0.035-0.038 ms at 4 x 580 x 1152) with its instruction slots close
+behind (about 250 float instructions a pixel, none fused). So
+csrc/matvec_recompute.cu walks as K3 does: a block goes down a strip of
+`STRIP` output columns one row of windows a step, the rows of the eleven
+planes arriving in a shared-memory ring through `cp.async` (16-byte
+pieces: the padding puts the strip's window on a 16-byte boundary), each
+read once per strip; the 3 x 3 windows rotate in registers. Nothing is
+summed in another order, so the kernel gives the plain version's bits.
+The grid is strips x row runs x images; `run_rows` chooses the run so that
+the card holds no more than `BLOCKS_PER_SM` blocks for each SM, one wave.
+
 `matvec_planes` routes by device: a CUDA tensor launches
 csrc/matvec_recompute.cu, a CPU tensor takes `matvec_planes_plain`, which
 repeats the TPU kernel's arithmetic in its order on the whole padded
@@ -26,14 +38,32 @@ import torch
 import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import _build
+# the runs of an image, as K3's grid makes them (K6's grid makes the same)
+from image_segmenter_tpu_torch.kernels.matvec import run_bounds  # noqa: F401
 from image_segmenter_tpu_torch.kernels.precompute import _SHIFTS
-from image_segmenter_tpu_torch.utils.backend import targets_cuda
+from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
 
 LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
 
 NSTATIC = 10  # valid, img x3, f0..f5
 HALO = 2      # two stacked radius-1 window passes
 _ROW_TILE = 32  # the output has whole row tiles of the TPU kernel's size
+
+STRIP = 124          # output columns a block walks down (SW in the source)
+# Blocks of csrc/matvec_recompute.cu an SM of the H100 holds at once: 128
+# threads of 96 registers and 36.4 KB of shared memory (cuobjdump
+# -res-usage); a grid of at most this many for each SM runs as one wave
+BLOCKS_PER_SM = 5
+MIN_RUN_ROWS = 8     # a run re-reads 4 rows: never shorter than this
+
+
+def run_rows(ho: int, wp: int, b: int, sm_count: int) -> int:
+    """Output rows a block of K6 covers: [0, Ho) is cut into equal runs,
+    as many as keep the grid within `BLOCKS_PER_SM` blocks for each of the
+    card's `sm_count` SMs over `b` images of ceil(wp / STRIP) strips."""
+    strips = -(-wp // STRIP)
+    runs = max(1, BLOCKS_PER_SM * sm_count // (strips * b))
+    return min(ho, max(MIN_RUN_ROWS, -(-ho // runs)))
 
 
 def _aligned_wp(w: int) -> int:
@@ -96,8 +126,9 @@ def matvec_planes(p_pad: torch.Tensor,
     out = torch.empty((b, ho, wp), dtype=torch.float32, device=p_pad.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(p_pad.device).cuda_stream
+    rows = run_rows(ho, wp, b, sm_count(p_pad.device))
     rc = lib.iseg_matvec_recompute(p_pad.data_ptr(), static_planes.data_ptr(),
-                                   b, hp, wp, ho, out.data_ptr(), stream)
+                                   b, hp, wp, ho, rows, out.data_ptr(), stream)
     _build.check(rc, "matvec_recompute")
     LAUNCHES += 1
     return out

@@ -12,6 +12,15 @@ the whole function on the interleaved frame: split into planes, kernel,
 stack back. The split and the stack are PyTorch copies, the layout cost
 the study is about; the port's bench/micro_quantize.py times both.
 
+The kernel is K4's search on another layout: csrc/quantize_flat.cu
+includes csrc/palette_map.cuh, K4's palette staging, integer keys for a
+whole-number palette and separately rounded float path for any other. A
+thread reads 16 pixels as one 16-byte word of each plane, packs each
+pixel as r | g << 8 | b << 16 and writes one 16-byte word of each output
+plane. `grid_blocks` is K4's grid rule: for each image as many blocks as
+its 16-pixel words need, at most `BLOCKS_PER_SM` for each SM of the card
+over the batch; they stride over the pixels.
+
 Both route by device: a CUDA tensor launches csrc/quantize_flat.cu, a CPU
 tensor takes the plain version.
 """
@@ -22,9 +31,22 @@ import torch
 
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels.quantize import _THIRD
-from image_segmenter_tpu_torch.utils.backend import targets_cuda
+from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
 
 LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+
+THREADS = 256        # a block of csrc/quantize_flat.cu (kThreads there)
+PIXELS = 16          # pixels a thread takes a step on the 16-byte path
+BLOCKS_PER_SM = 16   # grid-stride blocks a launch asks for, as K4's
+
+
+def grid_blocks(n: int, b: int, sms: int) -> int:
+    """Blocks a launch gives each of `b` images of `n` pixels on a card of
+    `sms` SMs: one thread for every 16 pixels, but no more than
+    `BLOCKS_PER_SM` blocks for each SM over the whole batch (K4's rule)."""
+    words = -(-n // PIXELS)
+    cap = -(-(sms * BLOCKS_PER_SM) // max(b, 1))
+    return max(1, min(-(-words // THREADS), cap))
 
 
 def split_planes(rgb_u8: torch.Tensor) -> torch.Tensor:
@@ -76,10 +98,11 @@ def quantize_planes(planes: torch.Tensor, alpha: torch.Tensor,
     out = torch.empty_like(planes)
     lib = _build.library()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
+    blocks = grid_blocks(n, b, sm_count(planes.device))
     rc = lib.iseg_quantize_flat(planes.data_ptr(), alpha.data_ptr(),
                                 centers_f32.data_ptr(),
                                 brightness_thr.data_ptr(), b, n,
-                                centers_f32.shape[1], int(k_real),
+                                centers_f32.shape[1], int(k_real), blocks,
                                 out.data_ptr(), stream)
     _build.check(rc, "quantize_flat")
     LAUNCHES += 1

@@ -220,9 +220,10 @@ def test_matvec_stack_kernel_matches_plain_and_k3(cuda, bhw):
 
 @pytest.mark.parametrize("bhw", RAGGED)
 def test_matvec_recompute_kernel_matches_plain(cuda, bhw):
-    """K6 within 1e-5 of max|ref| of its plain version over its whole
-    output (the partial sums next to the image included), and of K3's
-    matvec inside the image."""
+    """K6 gives its plain version's bits over its whole output (the
+    partial sums next to the image included): the same order of every sum,
+    no FMA contraction. Within 1e-5 of max|ref| of K3's matvec inside the
+    image."""
     img, planes, p = _matvec_operands(cuda, bhw, 6)
     b, h, w = bhw
     static = K6.pack_static(torch.ones_like(p), img, planes[:, 0:6])
@@ -234,10 +235,42 @@ def test_matvec_recompute_kernel_matches_plain(cuda, bhw):
     assert got.shape == ref.shape
     scale = float(ref[:, :h, :w].abs().max())
     assert float((got - ref).abs().max()) / scale < 1e-5
+    assert torch.equal(got, ref)
     k3 = KMV.matvec_planes(planes, img, p)
     assert float((got[:, :h, :w] - k3).abs().max()) / scale < 1e-5
     one = K6.matvec_planes(p_pad[0], static[0])  # the unbatched form
     assert torch.equal(one, got[0])
+
+
+def _valid_with_holes(cuda, b, h, w, seed):
+    """1 but for scattered holes, a hole of a few rows and columns and a
+    ragged right border."""
+    g = _gen(cuda, seed)
+    valid = (torch.rand((b, h, w), generator=g, device=cuda) > 0.1).float()
+    valid[:, h // 3:h // 3 + 3, w // 4:w // 4 + 5] = 0.0
+    cut = torch.randint(0, min(w, 4) + 1, (h,), generator=g, device=cuda)
+    valid[:, torch.arange(w, device=cuda)[None, :] >= (w - cut)[:, None]] = 0.0
+    return valid
+
+
+# the bench shape at b 4, several strips and runs with a ragged edge, one
+# pixel, and the ragged shapes
+@pytest.mark.parametrize("bhw", RAGGED + [(4, 576, 1024), (2, 203, 389),
+                                          (1, 1, 1)])
+def test_matvec_recompute_kernel_masked_valid_bits(cuda, bhw):
+    """K6 on a `valid` plane with holes and a ragged border: the plain
+    version's bits; also where Wp is no multiple of 4 (4-byte pieces)."""
+    img, planes, p = _matvec_operands(cuda, bhw, 16)
+    valid = _valid_with_holes(cuda, *bhw, 17)
+    static = K6.pack_static(valid, img, planes[:, 0:6])
+    p_pad = K6.pad_p(p)
+    assert torch.equal(K6.matvec_planes(p_pad, static),
+                       K6.matvec_planes_plain(p_pad, static))
+    wp = p_pad.shape[2] - 1
+    p_odd = p_pad[..., :wp].contiguous()
+    s_odd = static[..., :wp].contiguous()
+    assert torch.equal(K6.matvec_planes(p_odd, s_odd),
+                       K6.matvec_planes_plain(p_odd, s_odd))
 
 
 # (2, 37, 53): H*W odd, the pixel-by-pixel path; the others take 4 pixels a
@@ -396,3 +429,46 @@ def test_prng_and_colour_ops_card_equals_cpu(cuda):
                        C.rgb_u8_to_hsv_cv(u8))
     lab_card, lab_cpu = C.rgb_u8_to_lab(u8.to(cuda)).cpu(), C.rgb_u8_to_lab(u8)
     assert float((lab_card - lab_cpu).abs().max()) <= 1e-4
+
+
+# the bench shape, a ragged one (the byte path), rows of a multiple of 16
+# (the 16-byte path) with 16, 1 and no palette entry, and 256 entries
+@pytest.mark.parametrize("palette", ["whole", "fractional", "mixed"])
+@pytest.mark.parametrize("bhw,k_real", [((4, 2160, 3840), 16),
+                                        ((2, 37, 53), 11), ((3, 48, 50), 16),
+                                        ((4, 48, 50), 1), ((2, 16, 16), 0),
+                                        ((2, 64, 100), 256)])
+def test_quantize_flat_kernel_palette_kinds(cuda, bhw, k_real, palette):
+    """K7 on whole-number palettes (K4's integer keys), fractional ones
+    (the separately rounded float path) and batches that mix the two image
+    by image, with exact ties: the plain version's bytes and K4's; on
+    planes that start off a 16-byte boundary too (the byte path)."""
+    g = _gen(cuda, 10)
+    b, h, w = bhw
+    k_max = max(16, k_real)
+    rgb = torch.randint(0, 256, (b, h, w, 3), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    alpha = torch.rand((b, h, w), generator=g, device=cuda) > 0.3
+    pal = torch.randint(0, 256, (b, k_max, 3), generator=g,
+                        device=cuda).float()
+    frac = torch.rand((b, k_max, 3), generator=g, device=cuda) * 255
+    if palette == "fractional":
+        pal = frac
+    elif palette == "mixed":
+        pal[1::2] = frac[1::2]
+    pal[:, 5] = pal[:, 2]
+    rgb[:, 0, 0] = pal[:, 2].to(torch.uint8)
+    thr = torch.tensor([30.0, 10.0, -1.0, 30.0][:b], device=cuda)
+    ref = KQ.quantize_map_plain(rgb, alpha, pal, k_real, thr)
+    before = K7.LAUNCHES
+    got = K7.quantize_map_flat(rgb, alpha, pal, k_real, thr)
+    assert K7.LAUNCHES == before + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(got, KQ.quantize_map(rgb, alpha, pal, k_real, thr))
+    planes = K7.split_planes(rgb)
+    flat = torch.empty(planes.numel() + 1, dtype=torch.uint8, device=cuda)
+    off = flat[1:].view_as(planes).copy_(planes)
+    a_u8 = alpha.reshape(b, h * w).to(torch.uint8)
+    assert torch.equal(K7.stack_planes(K7.quantize_planes(off, a_u8, pal,
+                                                          k_real, thr), h, w),
+                       ref)
