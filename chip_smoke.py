@@ -21,10 +21,15 @@ Phases, each raising (and exiting non-zero) on failure:
    (also at a width that is no multiple of 4 and on an image narrower than
    a strip); K1 is exact on random, all-equal and alpha-like rows, over 200
    calls made back to back on changing inputs, and a profile shows that a
-   call is one device operation. For every kernel the time of launches made
-   back to back stands beside the time of one launch between two events,
-   which also holds the host's way to the launch; for K1 and K2 also the
-   time of the same calls replayed from a CUDA graph, the device's alone;
+   call is one device operation. Every variant of K8 likewise: exact on
+   random, run, all-equal, alpha-like, ragged, unaligned and one-row
+   inputs, over 200 calls back to back on changing inputs and variants and
+   on two streams, one device operation a call. For every kernel the time
+   of launches made back to back stands beside the time of one launch
+   between two events, which also holds the host's way to the launch; for
+   K1, K2 and every variant of K8 (on random, run and alpha-like rows, K1
+   beside it) also the time of the same calls replayed from a CUDA graph,
+   the device's alone;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, with output checks, per-kernel launch counts, and a
    bit-identical second run;
@@ -45,7 +50,8 @@ Phases, each raising (and exiting non-zero) on failure:
    K7 at 4 x 2160 x 3840, bit-equal, and K4 and K7 back to back on a
    whole-number palette, a fractional one, the two mixed and no palette
    entry at all) and bench/micro_hist_nibble.run (every
-   variant of K8 and K1, exact against np.bincount), the paths that launch
+   variant of K8 and K1 on random, run and alpha-like rows, exact against
+   np.bincount, back to back and from a CUDA graph), the paths that launch
    K7 and K8;
 9. the colour quantizers of compat/color_simplify on photo-like RGBA with
    a transparent and a dark region: kmeans at 1024 x 1024, the classical
@@ -657,50 +663,114 @@ def check_quantize_flat(label: str, dev) -> dict:
 
 
 def check_hist_variants(label: str, dev) -> dict:
-    """Every variant of K8 against its plain version, K1 and bincount."""
+    """Every variant of K8 against its plain version, K1 and bincount; one
+    device operation a call, 200 calls back to back on changing inputs, a
+    second stream; graph times on random, run and alpha-like rows."""
     g = torch.Generator(device=dev).manual_seed(8)
     x = torch.randint(0, 256, (BATCH, H4K * W4K), generator=g,
                       dtype=torch.uint8, device=dev)
     x[0, :1 << 20] = 255  # a long run of one value
     cases = {"main": x, "ragged": x[:2, :RAGGED[0] * RAGGED[1]].contiguous(),
-             "unaligned": x[1, 1:].reshape(1, -1), "one row": x[:1]}
-    ref_lib = _bincount(x).to(torch.float32)
+             "unaligned": x[1, 1:].reshape(1, -1), "one row": x[:1],
+             "all-equal": torch.full((2, MH * MW), 7, dtype=torch.uint8,
+                                     device=dev)}
+    # the timed inputs: random rows, the same with a run of 2^20 of one
+    # value at the head of every row, and the planes the main path counts
+    rand = torch.randint(0, 256, (BATCH, H4K * W4K), generator=g,
+                         dtype=torch.uint8, device=dev)
+    run = rand.clone()
+    run[:, :1 << 20] = 255
+    alpha = torch.from_numpy(BENCH_K12.alpha_like(
+        BATCH, H4K * W4K, np.random.default_rng(8))).to(dev)
+    timed = {"random": rand, "run": run, "alpha-like": alpha}
+    refs = {name: _bincount(xi).to(torch.float32)
+            for name, xi in {**cases, **timed}.items()}
     per_variant = {}
     for variant in K8.STEPS:
-        for name, xi in cases.items():
+        for name, xi in {**cases, **timed}.items():
             got = K8.hist_variant(xi, variant)
-            if name != "main":  # the plain one-hot products at full size once
+            if got.dtype != torch.float32 or got.shape != (xi.shape[0], 256):
+                fail(f"hist_variants {variant} {name}: {got.dtype} "
+                     f"{tuple(got.shape)}")
+            if name in ("ragged", "unaligned", "all-equal"):  # plain's one-hots
                 if not torch.equal(got, K8.hist_variant_plain(xi, variant)):
                     fail(f"hist_variants {variant} {name} differs from plain")
             if not torch.equal(got, KH.hist256(xi)):
                 fail(f"hist_variants {variant} {name} differs from K1")
-        if not torch.equal(K8.hist_variant(x, variant), ref_lib):
-            fail(f"hist_variants {variant} differs from bincount")
+            if not torch.equal(got, refs[name]):
+                fail(f"hist_variants {variant} {name} differs from bincount")
+        # one device operation a call: no memset, no cast
+        ops = _device_operations(lambda: K8.hist_variant(x, variant), 10)
+        if ops and len(ops) != 10:
+            fail(f"hist_variants {variant}: {len(ops)} device operations in "
+                 f"10 calls: {sorted(set(ops))}")
+        fn = lambda: K8.hist_variant(x, variant)  # noqa: E731
         per_variant[variant] = {
-            "ms": median_ms(lambda: K8.hist_variant(x, variant)),
-            "ms_back_to_back": median_ms(lambda: K8.hist_variant(x, variant),
-                                         inner=BACK_TO_BACK),
-            "ms_one_row": median_ms(lambda: K8.hist_variant(x[:1], variant))}
-    if not torch.equal(K8.hist_variant_plain(x, "N3D"), ref_lib):
+            "ms": median_ms(fn),
+            "ms_back_to_back": median_ms(fn, inner=BACK_TO_BACK),
+            "ms_one_row": median_ms(lambda: K8.hist_variant(x[:1], variant)),
+            "device_operations_per_call": len(ops) / 10 if ops else None,
+            **{f"ms_graph_{name}": BENCH_K12.graph_ms(
+                lambda: K8.hist_variant(xi, variant), BACK_TO_BACK, REPS)
+               for name, xi in timed.items()}}
+    if not torch.equal(K8.hist_variant_plain(x, "N3D"), refs["main"]):
         fail("hist_variants: the plain version differs from bincount")
+
+    # 200 calls back to back on changing inputs and variants: the kernel
+    # clears K1's scratch itself, and no call may see another's counts
+    pool = list({**cases, **timed}.items())
+    names = list(K8.STEPS)
+    torch.cuda.synchronize()
+    outs = [K8.hist_variant(pool[i % len(pool)][1], names[i % len(names)])
+            for i in range(200)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        if not torch.equal(out, refs[pool[i % len(pool)][0]]):
+            fail(f"hist_variants: call {i} of 200 back to back differs from "
+                 "bincount")
+    # a second stream has its own scratch; calls on both overlap
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs1, outs2 = [], []
+    for i in range(10):
+        outs1.append(K8.hist_variant(rand, names[i % len(names)]))
+        with torch.cuda.stream(side):
+            outs2.append(K8.hist_variant(alpha, names[-1 - i % len(names)]))
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, refs["random"]) for o in outs1) or \
+            not all(torch.equal(o, refs["alpha-like"]) for o in outs2):
+        fail("hist_variants: calls on two streams differ from bincount")
+
     plain_ms = median_ms(lambda: K8.hist_variant_plain(x, "N3D"), reps=3)
     library_ms = median_ms(lambda: _bincount(x))
     k1_ms = median_ms(lambda: KH.hist256(x), inner=BACK_TO_BACK)
+    k1_graph = {name: BENCH_K12.graph_ms(lambda: KH.hist256(xi), BACK_TO_BACK,
+                                         REPS) for name, xi in timed.items()}
     bd = bound(x.numel() + x.shape[0] * 256 * 4, x.numel())
     bd1 = bound(x.shape[1] + 256 * 4, x.shape[1])
     for variant, t in per_variant.items():
+        graphs = ", ".join(f"{name} {t['ms_graph_' + name]:.4f}"
+                           for name in timed)
         print(f"[kernels] hist_variants {variant} {tuple(x.shape)} u8: exact "
-              f"against plain, K1 and bincount; kernel {t['ms']:.4f} ms one "
-              f"launch, {t['ms_back_to_back']:.4f} back to back (bound "
-              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}), one row "
-              f"{t['ms_one_row']:.4f} ms (bound {bd1['bound_ms']:.4f} ms) "
-              f"({label})")
+              f"against plain, K1 and bincount on {len(cases) + len(timed)} "
+              f"inputs, over 200 calls back to back and on two streams; "
+              f"{t['device_operations_per_call']} device operations a call "
+              f"(torch.profiler); from a CUDA graph {graphs} ms (share of "
+              f"bound on random {bd['bound_ms'] / t['ms_graph_random']:.2f}); "
+              f"{t['ms']:.4f} ms one launch, {t['ms_back_to_back']:.4f} back "
+              f"to back (bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}), "
+              f"one row {t['ms_one_row']:.4f} ms (bound {bd1['bound_ms']:.4f} "
+              f"ms) ({label})")
     print(f"[kernels] hist_variants: K1 on the same rows {k1_ms:.4f} ms back "
-          f"to back, plain "
-          f"(N3D) {plain_ms:.4f} ms, bincount {library_ms:.4f} ms ({label})")
-    return {"max_abs_err": 0.0, "ms": per_variant["N3D"]["ms"],
-            "ms_back_to_back": per_variant["N3D"]["ms_back_to_back"],
-            "plain_ms": plain_ms, **bd, "library_ms": library_ms,
+          f"to back, from a CUDA graph "
+          + ", ".join(f"{name} {ms:.4f}" for name, ms in k1_graph.items())
+          + f"; plain (N3D) {plain_ms:.4f} ms, bincount {library_ms:.4f} ms "
+          f"({label})")
+    n3d = per_variant["N3D"]
+    return {"max_abs_err": 0.0, "ms": n3d["ms"],
+            "ms_back_to_back": n3d["ms_back_to_back"],
+            "ms_graph": n3d["ms_graph_random"], "plain_ms": plain_ms, **bd,
+            "library_ms": library_ms, "k1_ms_graph": k1_graph,
             "variants": per_variant}
 
 
@@ -1059,9 +1129,10 @@ def run_micros(label: str) -> dict:
             fail(f"micro_hist_nibble: {row['kernel']} on {row['input']} "
                  "differs from np.bincount")
     for name, group in by_input.items():
-        times = ", ".join(f"{r['kernel']} {r['ms']:.4f}" for r in group)
+        times = ", ".join(f"{r['kernel']} {r['ms']:.4f} / {r['ms_graph']:.4f}"
+                          for r in group)
         print(f"[micros] histogram of {name} ({H4K * W4K} a row), all exact, "
-              f"ms: {times} ({label})")
+              f"ms back to back / from a CUDA graph: {times} ({label})")
     launches = {k: v for k, v in read_counts().items() if k in MICRO_PATH}
     print(f"[micros] kernel launches in the two bench runs: {launches}; per "
           f"variant {K8.VARIANT_LAUNCHES}")

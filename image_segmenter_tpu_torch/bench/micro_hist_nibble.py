@@ -9,12 +9,20 @@ K1 (`kernels.histogram.hist256`) count the same inputs:
 
 - "random": uniform bytes from numpy's default_rng(0), one row of n and
   `rows` rows of n, as the TPU bench;
-- "run": the same row with its first 2^20 elements set to one value (lanes
-  of a warp that add to one address; on an H100 that costs no more than
-  one lane does).
+- "run": the `rows` rows with the first 2^20 elements of each set to one
+  value (lanes of a warp that add to one address);
+- "alpha-like": `rows` rows of an elliptic plane of 255 on 0 with 8 % of
+  its bytes random (`micro_precompute_hist.alpha_like`), what the main
+  path counts with K1.
 
-Every count must equal np.bincount. On a CPU tensor each wrapper takes its
-plain version, so a CPU run checks the plumbing only.
+Per row two times in ms, medians of 10: `LAUNCHES` calls back to back
+between two CUDA events (the host's launch rate where the kernel is
+shorter than a wrapper call) and the same calls replayed from a CUDA graph
+(`micro_precompute_hist.graph_ms`: the device's time alone). Every count
+must equal np.bincount. The script calls the wrappers' public entry points
+only, so one copy of it times any tree of the package (PYTHONPATH set to
+each in turn, in one call). On a CPU tensor each wrapper takes its plain
+version, so a CPU run checks the plumbing only and has no graph time.
 
     python -m image_segmenter_tpu_torch.bench.micro_hist_nibble [cuda|cpu] [n rows]
 """
@@ -26,6 +34,8 @@ import sys
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.bench.micro_precompute_hist import (
+    LAUNCHES, alpha_like, graph_ms)
 from image_segmenter_tpu_torch.bench.micro_quantize import median_ms
 from image_segmenter_tpu_torch.kernels import hist_variants as K8
 from image_segmenter_tpu_torch.kernels import histogram as K1
@@ -39,15 +49,17 @@ def inputs(n: int, rows: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     one = rng.integers(0, 256, n, dtype=np.uint8)
     many = rng.integers(0, 256, (rows, n), dtype=np.uint8)
-    run = one.copy()
-    run[:min(RUN_LENGTH, n)] = 255
-    return {"random": one[None], f"random x{rows}": many, "run": run[None]}
+    run = many.copy()
+    run[:, :min(RUN_LENGTH, n)] = 255
+    return {"random": one[None], f"random x{rows}": many,
+            f"run x{rows}": run, f"alpha-like x{rows}": alpha_like(rows, n, rng)}
 
 
 def run(device="cuda", n: int = 2160 * 3840, rows: int = 4,
         reps: int = 10) -> list:
-    """One row per (input, kernel): {"input", "kernel", "ms", "exact",
-    "launches"}; `exact` is equality with np.bincount on every row."""
+    """One row per (input, kernel): {"input", "kernel", "ms" (back to
+    back), "ms_graph", "exact", "launches"}; `exact` is equality with
+    np.bincount on every row; `launches` counts the checking call only."""
     dev = resolve_device(device)
     kernels = {name: (lambda x, v=name: K8.hist_variant(x, v))
                for name in K8.STEPS}
@@ -60,10 +72,13 @@ def run(device="cuda", n: int = 2160 * 3840, rows: int = 4,
         for name, fn in kernels.items():
             before = K8.LAUNCHES + K1.LAUNCHES
             exact = bool(np.array_equal(fn(x).cpu().numpy(), ref))
-            ms = median_ms(lambda: fn(x), x.is_cuda, reps)
-            out.append({"input": label, "kernel": name, "ms": ms,
-                        "exact": exact,
-                        "launches": K8.LAUNCHES + K1.LAUNCHES - before})
+            launches = K8.LAUNCHES + K1.LAUNCHES - before
+            call = lambda: fn(x)  # noqa: E731
+            out.append({"input": label, "kernel": name,
+                        "ms": median_ms(call, x.is_cuda, reps, LAUNCHES),
+                        "ms_graph": graph_ms(call, LAUNCHES, reps)
+                        if x.is_cuda else float("nan"),
+                        "exact": exact, "launches": launches})
     return out
 
 
@@ -72,8 +87,9 @@ def main(argv) -> None:
     n, rows = (int(v) for v in argv[2:4]) if len(argv) > 3 else (2160 * 3840, 4)
     res = run(device, n, rows)
     for row in res:
-        print(f"[micro_hist_nibble] {row['input']:12s} {row['kernel']:12s} "
-              f"{row['ms']:9.4f} ms  exact {row['exact']}", flush=True)
+        print(f"[micro_hist_nibble] {row['input']:14s} {row['kernel']:12s} "
+              f"back to back {row['ms']:9.4f} ms, graph {row['ms_graph']:9.4f}"
+              f" ms, exact {row['exact']}", flush=True)
     if not all(row["exact"] for row in res):
         raise SystemExit("a histogram variant differs from np.bincount")
 

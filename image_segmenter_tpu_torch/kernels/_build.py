@@ -59,8 +59,9 @@ SIGNATURES = {
     #  out u8 (3, B, H*W), stream)
     "iseg_quantize_flat": [_P, _P, _P, _P, _I32, _I64, _I32, _I32, _I32, _P,
                            _P],
-    # (x u8 (B, n), n, B, step, out int32 (B, 256), stream)
-    "iseg_hist_variant": [_P, _I64, _I32, _I32, _P, _P],
+    # (x u8 (B, n), n, B, step, blocks a row, scratch int32 (>= B, 257) all
+    #  zero, out f32 (B, 256), stream)
+    "iseg_hist_variant": [_P, _I64, _I32, _I32, _I32, _P, _P, _P],
 }
 
 _lib = None

@@ -397,19 +397,100 @@ def test_quantize_flat_kernel_equals_k4_and_plain(cuda, bhw, k_real):
                                    (2, 37 * 53), (3, 2 * 32768 + 777), (1, 5)])
 @pytest.mark.parametrize("variant", sorted(K8.STEPS))
 def test_hist_variant_kernel_exact(cuda, variant, shape):
+    """Random rows with a long run, alpha-like rows and all-equal rows (the
+    byte counters' worst case): float32 counts equal to K1 and np.bincount,
+    one launch a call."""
+    from image_segmenter_tpu_torch.bench.micro_precompute_hist import \
+        alpha_like
+
     x = torch.randint(0, 256, shape, generator=_gen(cuda, 8), device=cuda,
                       dtype=torch.uint8)
     x[0, : shape[1] // 3] = 255  # a long run of one value
+    alpha = torch.from_numpy(alpha_like(*shape, np.random.default_rng(8))) \
+        .to(cuda)
+    equal = torch.full(shape, 7, dtype=torch.uint8, device=cuda)
+    for xi in (x, alpha, equal):
+        before = K8.LAUNCHES
+        got = K8.hist_variant(xi, variant)
+        assert K8.LAUNCHES == before + 1
+        assert got.dtype == torch.float32 and got.shape == (shape[0], 256)
+        assert torch.equal(got, KH.hist256(xi))
+        np.testing.assert_array_equal(got.cpu().numpy(), _bincount(xi))
+        if shape[1] < 1 << 20:
+            assert torch.equal(got, K8.hist_variant_plain(xi, variant))
+        off = xi[0, 3:].reshape(1, -1)  # unaligned start
+        assert torch.equal(K8.hist_variant(off, variant), KH.hist256(off))
+
+
+@pytest.mark.parametrize("variant", sorted(K8.STEPS))
+def test_hist_variant_kernel_is_one_device_operation(cuda, variant):
+    """No memset before the kernel and no cast after it (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randint(0, 256, (4, 1 << 20), generator=_gen(cuda, 14),
+                      device=cuda, dtype=torch.uint8)
+    K8.hist_variant(x, variant)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            K8.hist_variant(x, variant)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        pytest.skip("torch.profiler recorded no device operation here")
+    assert len(ops) == 10, sorted(set(ops))
+
+
+def test_hist_variant_kernel_200_calls_back_to_back(cuda):
+    """K1's scratch is cleared by K8 itself: 200 calls on changing inputs,
+    sizes and variants, K1 between them, without a synchronisation, each
+    exact; the scratch of the stream is zero after them."""
+    g = _gen(cuda, 15)
+    sizes = [576 * 1024, 37 * 53, 1 << 20, 4099, 2160 * 3840]
+    xs = []
+    for i in range(20):
+        x = torch.randint(0, 256, (1 + i % 4, sizes[i % len(sizes)]),
+                          generator=g, device=cuda, dtype=torch.uint8)
+        if i % 3 == 0:
+            x[:, : x.shape[1] // 2] = 255 * (i % 2)
+        xs.append(x)
+    refs = [torch.from_numpy(_bincount(x)) for x in xs]
+    names = sorted(K8.STEPS)
+    torch.cuda.synchronize()
     before = K8.LAUNCHES
-    got = K8.hist_variant(x, variant)
-    assert K8.LAUNCHES == before + 1
-    assert torch.equal(got, KH.hist256(x))
-    ref = np.stack([np.bincount(r, minlength=256) for r in x.cpu().numpy()])
-    np.testing.assert_array_equal(got.cpu().numpy(), ref.astype(np.float32))
-    if shape[1] < 1 << 20:
-        assert torch.equal(got, K8.hist_variant_plain(x, variant))
-    off = x[0, 3:].reshape(1, -1)  # unaligned start
-    assert torch.equal(K8.hist_variant(off, variant), KH.hist256(off))
+    outs = [K8.hist_variant(xs[i % 20], names[i % 5]) if i % 7 else
+            KH.hist256(xs[i % 20]) for i in range(200)]
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES == before + sum(1 for i in range(200) if i % 7)
+    for i, out in enumerate(outs):
+        assert torch.equal(out.cpu(), refs[i % 20]), i
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(KH._scratch_for(xs[0].device, stream, 1).abs().sum()) == 0
+
+
+def test_hist_variant_kernel_two_streams(cuda):
+    """Each stream has its own scratch: calls that overlap on two streams
+    stay exact."""
+    g = _gen(cuda, 16)
+    x1 = torch.randint(0, 256, (4, 2160 * 3840), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    x2 = torch.randint(0, 200, (4, 2160 * 3840), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    r1, r2 = _bincount(x1), _bincount(x2)
+    names = sorted(K8.STEPS)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs1, outs2 = [], []
+    for i in range(20):
+        outs1.append(K8.hist_variant(x1, names[i % 5]))
+        with torch.cuda.stream(side):
+            outs2.append(K8.hist_variant(x2, names[-1 - i % 5]))
+    torch.cuda.synchronize()
+    for o1, o2 in zip(outs1, outs2):
+        np.testing.assert_array_equal(o1.cpu().numpy(), r1)
+        np.testing.assert_array_equal(o2.cpu().numpy(), r2)
 
 
 def test_prng_and_colour_ops_card_equals_cpu(cuda):
