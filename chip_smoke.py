@@ -57,7 +57,20 @@ Phases, each raising (and exiting non-zero) on failure:
    a transparent and a dark region: kmeans at 1024 x 1024, the classical
    batch at 1080 x 1920, the perceptual family at 2160 x 3840; output
    checks, a second call with the same bytes, warm times with the stage
-   stamps, and card against CPU on a 270 x 480 frame.
+   stamps, and card against CPU on a 270 x 480 frame;
+10. GrabCut at BASELINE config 4's shape: apply_grabcut with the rect
+   (w/8, h/12, 3w/4, 9h/10), 10 iterations and the split-merge polish on
+   three seeded 1024 x 768 portrait scenes: uint8 in {0..3}, known pixels
+   passed through, a bit-identical second call, the wall beside the
+   LAST_SOLVE_INFO stamps (which must sum to within 10 % of it), the cut
+   iterations and the polish time; run_grabcut_workflow once with
+   strokes; card against CPU on a 120 x 160 scene (foreground IoU >= 0.99);
+11. ISNet: rembg_remove_bgr_to_rgba(model="isnet-general-use") on phase
+   7's 1536 x 2048 frame at the published 1024 x 1024 input (alpha in
+   {0, 255}, K1 launched), card against CPU on 384 x 512 (sharp alpha
+   agreement >= 0.99), and the seeded ISNet written to .onnx by the
+   port's writer, loaded by a Session (complete, the seeded session's
+   mask bytes) and by tools/verify_checkpoint.verify.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -66,8 +79,10 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +94,7 @@ from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
 from image_segmenter_tpu_torch.bench import micro_quantize as BENCH_QUANT
 from image_segmenter_tpu_torch.compat import _perceptual as PERCEPTUAL
 from image_segmenter_tpu_torch.compat import color_simplify as CS
+from image_segmenter_tpu_torch.compat import grabcut as GRABCUT
 from image_segmenter_tpu_torch.compat import matting_refine as REFINE
 from image_segmenter_tpu_torch.compat import rembg_infer as REMBG
 from image_segmenter_tpu_torch.kernels import _build
@@ -89,8 +105,13 @@ from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
+from image_segmenter_tpu_torch.models import onnx_writer as ONNX_WRITER
+from image_segmenter_tpu_torch.models import registry as REG
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
+from image_segmenter_tpu_torch.solvers import grabcut as GC
 from image_segmenter_tpu_torch.solvers import matting as MAT
+from image_segmenter_tpu_torch.tools import verify_checkpoint as VERIFY
+from image_segmenter_tpu_torch.utils import seeds as SEEDS
 from image_segmenter_tpu_torch.utils.backend import strict_f32
 
 BATCH, H4K, W4K = 4, 2160, 3840
@@ -104,6 +125,9 @@ COMPAT_HW = (1536, 2048)      # the compat path's frame (shrunk to 768 x 1024)
 COMPAT_SMALL_HW = (384, 512)  # card against CPU
 SEEDED_REFINE_CAP = 400       # CG iterations a rung may take on the seeded mask
 QUANT_SMALL_HW = (270, 480)   # the quantizers, card against CPU
+GRABCUT_HW = (1024, 768)      # BASELINE config 4's portrait crops
+GRABCUT_SMALL_HW = (120, 160)  # GrabCut, card against CPU
+ISNET = "isnet-general-use"
 REPS = 10
 BACK_TO_BACK = 20             # launches between two events, host gap hidden
 INNER = 50                    # fed-back matvecs in the variant bench
@@ -1260,6 +1284,208 @@ def run_quantizers(label: str) -> None:
             fail(f"{name}: card-vs-CPU agreement {agree} < 0.99")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: GrabCut
+# ---------------------------------------------------------------------------
+
+def _fg_of(m):
+    return (m == GC.FGD) | (m == GC.PR_FGD)
+
+
+def _iou(a, b) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def run_grabcut(label: str) -> None:
+    h, w = GRABCUT_HW
+    rect = SEEDS.config4_rect(h, w)
+    x, y, rw, rh = rect
+    outside = np.ones((h, w), bool)
+    outside[y:y + rh, x:x + rw] = False
+    zero_counts()
+    for seed in (21, 22, 23):
+        bgr, subject = SEEDS.portrait_scene(h, w, seed)
+        first, ms_first = _timed(lambda: GRABCUT.apply_grabcut(
+            bgr, rect_xywh=rect, iterations=10))
+        out, ms = _timed(lambda: GRABCUT.apply_grabcut(
+            bgr, rect_xywh=rect, iterations=10))
+        info = dict(GC.LAST_SOLVE_INFO)
+        if out.dtype != np.uint8 or out.shape != (h, w):
+            fail(f"grabcut: output is {out.dtype} {out.shape}")
+        if not set(np.unique(out).tolist()) <= {0, 1, 2, 3}:
+            fail("grabcut: mask values outside {0, 1, 2, 3}")
+        if not (out[outside] == GC.BGD).all():
+            fail("grabcut: a known background pixel changed")
+        if not np.array_equal(out, first):
+            fail(f"grabcut scene {seed}: a second call gives other bytes")
+        stamps = {k: v for k, v in info.items() if k.startswith("t_")}
+        share = sum(stamps.values()) * 1e3 / ms
+        listed = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in stamps.items())
+        print(f"[grabcut] apply_grabcut {h}x{w} scene {seed}, 10 iterations, "
+              f"split-merge polish: ok, second call identical, foreground IoU "
+              f"with the drawn subject {_iou(_fg_of(out), subject):.4f}; warm "
+              f"{ms:.3f} ms (first {ms_first:.3f}); stamps {listed} ms, "
+              f"{share * 100:.1f} % of the call; cut iterations "
+              f"{info['cut_iters']}, restart "
+              f"{info.get('restart_accepted', 'not run')} ({label})")
+        if not 0.9 <= share <= 1.1:
+            fail(f"grabcut: the stage stamps sum to {share:.3f} of the "
+                 "call's wall, outside 10 %")
+    launches = {k: v for k, v in read_counts().items() if v}
+    print(f"[grabcut] kernel launches on the GrabCut path: {launches} "
+          "(it holds no kernel)")
+
+    # the workflow: strokes seed the cut on the whole canvas
+    bgr, _ = SEEDS.portrait_scene(h, w, 21)
+    strokes = np.zeros((h, w), np.uint8)
+    strokes[int(0.3 * h):int(0.36 * h), int(0.45 * w):int(0.55 * w)] = 1
+    strokes[int(0.7 * h):int(0.8 * h), int(0.4 * w):int(0.6 * w)] = 1
+    strokes[int(0.02 * h):int(0.05 * h), int(0.05 * w):int(0.3 * w)] = 2
+    rgba, ms = _timed(lambda: SEEDS.run_grabcut_workflow(bgr, strokes,
+                                                         iterations=10))
+    if rgba is None or rgba.dtype != np.uint8 or rgba.shape != (h, w, 4):
+        fail("run_grabcut_workflow: no RGBA of the frame's size")
+    if not (np.array_equal(rgba[..., :3], bgr[..., ::-1])
+            and np.isin(rgba[..., 3], (0, 255)).all()):
+        fail("run_grabcut_workflow: colours changed or alpha not in {0, 255}")
+    print(f"[grabcut] run_grabcut_workflow {h}x{w} with strokes: ok, opaque "
+          f"share {(rgba[..., 3] > 0).mean():.4f}; {ms:.3f} ms ({label})")
+
+    # the Chambolle-Pock loop alone, at the full image (one lane) and at
+    # the polish's coarse search (ten lanes): ms per iteration. The loop
+    # runs whole chunks, so it ran ceil(max it / chunk) chunks
+    g = torch.Generator(device="cuda").manual_seed(25)
+    for lanes, (ch, cw) in ((1, (h, w)), (10, (256, 192))):
+        unary = torch.randn((lanes, ch, cw), generator=g, device="cuda") * 4
+        wts = GC._nlink_weights(
+            torch.rand((3, ch, cw), generator=g, device="cuda") * 255)
+        free = torch.zeros((lanes, ch, cw), dtype=torch.bool, device="cuda")
+        GC.tv_mincut(unary, wts, free, free, max_iter=100)  # warm-up
+        (_, it, _), ms = _timed(lambda: GC.tv_mincut(unary, wts, free, free,
+                                                     max_iter=500))
+        ran = min(500, -(-int(it.max()) // GC._CHUNK) * GC._CHUNK)
+        print(f"[grabcut] Chambolle-Pock loop {lanes}x{ch}x{cw}: "
+              f"{ms / ran:.4f} ms per iteration over {ran} iterations, one "
+              f"host read per {GC._CHUNK} ({label})")
+
+    # the evaluator gives a lane the same bits at any lane count: ten lanes
+    # as the polish ranks its candidates, two as the full-resolution
+    # acceptance and the collapse restart score, against one-lane calls
+    rng = np.random.default_rng(26)
+    for lanes, (ch, cw) in ((10, (256, 192)), (2, (h, w))):
+        bgr, subject = SEEDS.portrait_scene(ch, cw, 26)
+        im = GC.prepare(torch.from_numpy(bgr).cuda())
+        masks = torch.from_numpy(np.stack([
+            subject ^ (rng.random((ch, cw)) < 0.01 * (i + 1))
+            for i in range(lanes)]).astype(np.float32)).cuda()
+        batched = GC.mask_energy(im, masks)
+        single = torch.cat([GC.mask_energy(im, m[None]) for m in masks])
+        if not torch.equal(batched, single):
+            fail(f"grabcut: mask_energy over {lanes} lanes differs from "
+                 f"one-lane calls by {(batched - single).abs().max()}")
+        print(f"[grabcut] mask_energy {lanes}x{ch}x{cw}: each lane equals a "
+              f"one-lane call bit for bit ({label})")
+
+    # card against CPU
+    sh, sw = GRABCUT_SMALL_HW
+    bgr, _ = SEEDS.portrait_scene(sh, sw, 24)
+    rect = SEEDS.config4_rect(sh, sw)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = GRABCUT.apply_grabcut(bgr, rect_xywh=rect, iterations=10,
+                                         device=dev)
+        res[dev + "_ms"] = (time.perf_counter() - t0) * 1e3
+        res[dev + "_info"] = dict(GC.LAST_SOLVE_INFO)
+    iou = _iou(_fg_of(res["cuda"]), _fg_of(res["cpu"]))
+    print(f"[grabcut] {sh}x{sw} card against CPU: foreground IoU {iou:.6f}, "
+          f"equal bytes {(res['cuda'] == res['cpu']).mean():.6f}; cut "
+          f"iterations card {res['cuda_info']['cut_iters']}, CPU "
+          f"{res['cpu_info']['cut_iters']}; card {res['cuda_ms']:.1f} ms, CPU "
+          f"{res['cpu_ms']:.1f} ms ({label})")
+    if iou < 0.99:
+        fail(f"grabcut: card-vs-CPU foreground IoU {iou} < 0.99")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: ISNet, the ONNX writer and loader
+# ---------------------------------------------------------------------------
+
+def _check_rgba(rgba, rgb, what):
+    h, w = rgb.shape[:2]
+    if rgba.dtype != np.uint8 or rgba.shape != (h, w, 4):
+        fail(f"{what}: output is {rgba.dtype} {rgba.shape}")
+    if not np.array_equal(rgba[..., :3], rgb):
+        fail(f"{what}: the colour channels are not the input's")
+    if not np.isin(rgba[..., 3], (0, 255)).all():
+        fail(f"{what}: sharp alpha is not in {{0, 255}}")
+
+
+def run_isnet(label: str) -> int:
+    h, w = COMPAT_HW
+    rgb, _, _ = compat_case(h, w, seed=7)
+    bgr = np.ascontiguousarray(rgb[:, :, ::-1])
+    REMBG.rembg_remove_bgr_to_rgba(bgr, model=ISNET)  # warm-up (cuDNN plans)
+    zero_counts()
+    rgba, ms = _timed(lambda: REMBG.rembg_remove_bgr_to_rgba(bgr, model=ISNET))
+    k1 = read_counts()["histogram"]
+    _check_rgba(rgba, rgb, "rembg isnet")
+    if k1 <= 0:
+        fail("rembg isnet: K1 was not launched (the Otsu sharp edges)")
+    sess = REMBG._get_session(ISNET)
+    n_par = sum(p.numel() for p in sess.module.parameters())
+    print(f"[isnet] rembg_remove_bgr_to_rgba({ISNET}, {n_par / 1e6:.1f} M "
+          f"parameters, seeded, input {sess.spec.size[0]}x{sess.spec.size[1]}) "
+          f"{h}x{w}: ok, opaque share {(rgba[..., 3] > 0).mean():.3f}; "
+          f"{ms:.3f} ms; K1 launches {k1} ({label})")
+    mask_seeded = sess.predict_mask(rgb)
+
+    # card against CPU
+    sh, sw = COMPAT_SMALL_HW
+    rgb_s, _, _ = compat_case(sh, sw, seed=9)
+    bgr_s = np.ascontiguousarray(rgb_s[:, :, ::-1])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = REMBG.rembg_remove_bgr_to_rgba(bgr_s, model=ISNET,
+                                                  device=dev)
+        res[dev + "_ms"] = (time.perf_counter() - t0) * 1e3
+        _check_rgba(res[dev], rgb_s, f"rembg isnet on {dev}")
+    agree = float((res["cuda"][..., 3] == res["cpu"][..., 3]).mean())
+    print(f"[isnet] {sh}x{sw} card against CPU: sharp alpha agreement "
+          f"{agree:.6f}; card {res['cuda_ms']:.1f} ms, CPU {res['cpu_ms']:.1f} "
+          f"ms ({label})")
+    if agree < 0.99:
+        fail(f"rembg isnet: card-vs-CPU agreement {agree} < 0.99")
+
+    # the seeded weights through the port's .onnx writer and loader
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, ISNET + ".onnx")
+        t0 = time.perf_counter()
+        ONNX_WRITER.export_torch_state(path, sess.module.state_dict())
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = REG.Session(ISNET, ckpt_path=path)
+        t_load = time.perf_counter() - t0
+        rep = loaded.load_report
+        if not (loaded.weights_loaded and rep.complete
+                and rep.mapped == rep.total):
+            fail(f"isnet checkpoint: incomplete load: {rep.summary()}")
+        if not np.array_equal(loaded.predict_mask(rgb), mask_seeded):
+            fail("isnet checkpoint: the loaded session's mask differs from "
+                 "the seeded session's")
+        result = VERIFY.verify(path)
+        if not (result["load"]["ok"] and len(result["activations"]) == 6
+                and "mask" in result):
+            fail(f"verify_checkpoint: {result.get('load')}")
+        print(f"[isnet] checkpoint round trip: {os.path.getsize(path) / 1e6:.1f}"
+              f" MB written in {t_write:.1f} s, loaded in {t_load:.1f} s "
+              f"({rep.summary()}), the seeded session's mask bytes; "
+              f"verify_checkpoint: {result['load']['summary']}, sharp "
+              f"foreground share {result['mask']['sharp_fg_frac']}")
+    return k1
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -1292,6 +1518,8 @@ def main() -> None:
     run_compat(label)
     launches.update(run_micros(label))
     run_quantizers(label)
+    run_grabcut(label)
+    run_isnet(label)
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

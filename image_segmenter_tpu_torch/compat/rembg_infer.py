@@ -8,9 +8,11 @@ caching (per model and device, lock-guarded), RGBA normalisation,
 PIL-NEAREST size normalisation and the Otsu sharp-edges post-process follow
 the reference in behaviour.
 
-Weights are seeded (models/registry.py): masks are then meaningless but
-shape-, dtype- and contract-exact. numpy in, numpy out; `device` is "cuda"
-by default and raises when the card is absent.
+Weights come from the model's rembg `.onnx` when one is found, else they
+are seeded (models/registry.py): masks are then meaningless but shape-,
+dtype- and contract-exact. Every model id of the reference UI runs,
+ISNet (`isnet-general-use`, the UI's default) included. numpy in, numpy
+out; `device` is "cuda" by default and raises when the card is absent.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ Only the fields this port's code reads are copied here.
 - trimap thresholds 220 / 20 ............ app/processing/matting_refine.py:14-20
 - kmeans random_state=42, n_init=10 ..... app/processing/color_simplify.py:79-81
 - perceptual_fast max dim 512 / 5000 .... app/processing/color_simplify.py:608,632
+- grabcut iterations 10 ................. app/ui/main_window.py:300,318,363,365
 """
 
 from __future__ import annotations
@@ -32,6 +33,25 @@ class Defaults:
     kmeans_n_init: int = 10
     perceptual_fast_max_dim: int = 512
     perceptual_fast_max_samples: int = 5000
+    # GrabCut
+    grabcut_iterations: int = 10
+    grabcut_gmm_components: int = 5
+    # After the EM alternations, propose GMM split-merge moves and keep the
+    # best mask under the standardized energy (solvers/grabcut.py
+    # _splitmerge_polish): it escapes the EM local optima cv.grabCut is
+    # stuck in on quantized or few-colour images. False reproduces the
+    # plain alternation (one deterministic cv2-style run).
+    grabcut_splitmerge: bool = True
+    # Above this max dim the polish's candidate search runs on an
+    # AREA-downscaled image (the GMM candidates live in colour space); only
+    # the winner is continued and accepted at full resolution.
+    grabcut_polish_search_dim: int = 256
+    # When the alternation collapses to an (almost) empty foreground,
+    # re-run it with a core of the init-FG region clamped to hard FG, then
+    # release the clamp, and keep whichever mask has the lower
+    # standardized energy: all-BG is an absorbing EM state on
+    # statistically homogeneous scenes.
+    grabcut_collapse_restart: bool = True
     # Reproduce the reference's bugs instead of fixing them: the kmeans
     # chained-fancy-index no-op that leaves the output RGB black
     # (color_simplify.py:90) and perceptual's map of LAB pixels against RGB

@@ -1,13 +1,16 @@
 """Model registry and sessions for the rembg model ids.
 
 Counterpart of image_segmenter_tpu/models/registry.py. A session owns one
-network on one device, initialised from a seed: the rembg `.onnx`
-checkpoints are not loaded yet, so weights are seeded as the JAX package
-seeds them when no checkpoint is found (Flax's default initialisers:
-lecun-normal conv kernels, zero biases, identity BatchNorm statistics),
-drawn from an explicit CPU `torch.Generator` so that every device gets the
-same weights. Real weights can be loaded with `Session.load_state_dict`
-(models/convert.state_from_flax carries the JAX package's variables over).
+network on one device. Its weights come from the model's rembg `.onnx`
+checkpoint when one is found (an explicit `ckpt_path`, else
+$U2NET_HOME/<id>.onnx, else ~/.u2net/<id>.onnx), loaded strictly through
+models/onnx_import.py: a file that maps only in part is refused. Without
+one they are seeded as the JAX package seeds them (Flax's default
+initialisers: lecun-normal conv kernels, zero biases, identity BatchNorm
+statistics), drawn from an explicit CPU `torch.Generator` so that every
+device gets the same weights. `Session.load_state_dict` loads a state
+dict (models/convert.state_from_flax carries the JAX package's variables
+over).
 
 Pre- and postprocessing follow rembg's sessions/base.py, as the JAX
 package's do: PIL-Lanczos resize to the model's input size, divide by the
@@ -18,13 +21,16 @@ saliency, Lanczos resize back to the input's size.
 from __future__ import annotations
 
 import math
+import os
+import sys
 import threading
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.models import onnx_import as OIMP
 from image_segmenter_tpu_torch.models import u2net as NETS
 from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.utils.backend import resolve_device
@@ -59,7 +65,16 @@ def _build(spec: ModelSpec, half: bool) -> torch.nn.Module:
         return NETS.U2NET(out_ch=spec.out_ch, small=False, half=half)
     if spec.arch == "u2netp":
         return NETS.U2NET(out_ch=spec.out_ch, small=True, half=half)
-    raise NotImplementedError(f"{spec.arch}: ISNet is not ported yet")
+    return NETS.ISNet(out_ch=spec.out_ch, half=half)
+
+
+def _checkpoint_path(model: str) -> Optional[str]:
+    """$U2NET_HOME/<model>.onnx, else ~/.u2net/<model>.onnx, if the file
+    exists (rembg's discovery)."""
+    home = os.environ.get("U2NET_HOME",
+                          os.path.join(os.path.expanduser("~"), ".u2net"))
+    p = os.path.join(home, f"{model}.onnx")
+    return p if os.path.isfile(p) else None
 
 
 def _truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
@@ -94,7 +109,7 @@ class Session:
     """One model id on one device: the network and its weights."""
 
     def __init__(self, model: str, half: bool = True, seed: int = 0,
-                 device="cuda"):
+                 ckpt_path: Optional[str] = None, device="cuda"):
         if model not in SPECS:
             raise ValueError(f"unknown rembg model id: {model}")
         self.device = resolve_device(device)
@@ -103,8 +118,23 @@ class Session:
         self.half = half
         module = _build(self.spec, half)
         _seeded_init(module, seed)
-        self.module = module.to(self.device).eval()
         self.weights_loaded = False
+        self.load_report = None
+        # an explicit path (tools/verify_checkpoint) overrides discovery
+        ckpt = ckpt_path if ckpt_path is not None else _checkpoint_path(model)
+        if ckpt is not None:
+            # Strict: a checkpoint that exists but maps only in part would
+            # silently give garbage masks; refuse it instead (onnxruntime,
+            # the reference's path, likewise fails loudly on a bad file).
+            state, self.load_report = OIMP.load_into_state_dict(
+                module, ckpt, strict=True)
+            module.load_state_dict(state, strict=True)
+            self.weights_loaded = True
+            # diagnostic, not output: stdout stays clean for tools that
+            # print machine-readable JSON (tools/verify_checkpoint)
+            print(f"[models] {model}: {self.load_report.summary()}",
+                  file=sys.stderr)
+        self.module = module.to(self.device).eval()
 
     def load_state_dict(self, state) -> None:
         """Load a rembg-named state dict (strict)."""

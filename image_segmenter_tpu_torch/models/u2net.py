@@ -1,15 +1,17 @@
-"""U^2-Net (full and U2NETP) as PyTorch modules, NCHW.
+"""U^2-Net (full and U2NETP) and ISNet as PyTorch modules, NCHW.
 
 Counterpart of image_segmenter_tpu/models/u2net.py (Qin et al., Pattern
-Recognition 2020). Module names follow rembg's checkpoints
-(stage1.rebnconvin.conv_s1.weight, ...), the names models/convert.py maps
-the JAX package's Flax variables onto. ISNet is not ported yet.
+Recognition 2020; DIS/ISNet, Qin et al., ECCV 2022). Module names follow
+rembg's checkpoints (stage1.rebnconvin.conv_s1.weight, ..., conv_in), the
+names models/convert.py maps the JAX package's Flax variables onto and
+models/onnx_import.py reads from a rembg `.onnx`.
 
 Numerics follow the Flax modules. With `half=True` each REBNCONV runs its
 convolution in bfloat16 (the card accumulates in float32), adds the bias
 in bfloat16, normalises in float32, applies ReLU and casts back to
-bfloat16. The side convolutions and the fuse conv run in float32, and the
-side outputs are float32 before their upsample.
+bfloat16. ISNet's conv_in runs in bfloat16 too, bias added in bfloat16.
+The side convolutions and the fuse conv run in float32, and the side
+outputs are float32 before their upsample.
 """
 
 from __future__ import annotations
@@ -143,6 +145,62 @@ class RSU4F(nn.Module):
         return hx1d + hxin
 
 
+_FULL = dict(cfg_enc=[(7, 32, 64), (6, 32, 128), (5, 64, 256), (4, 128, 512)],
+             f_mid=256, f_out=512,
+             cfg_dec=[(4, 128, 256), (5, 64, 128), (6, 32, 64), (7, 16, 64)])
+_SMALL = dict(cfg_enc=[(7, 16, 64), (6, 16, 64), (5, 16, 64), (4, 16, 64)],
+              f_mid=16, f_out=64,  # U2NETP: every stage mid=16, out=64
+              cfg_dec=[(4, 16, 64), (5, 16, 64), (6, 16, 64), (7, 16, 64)])
+
+
+def _add_body(m: nn.Module, in_ch: int, out_ch: int, half: bool, cfg_enc,
+              f_mid: int, f_out: int, cfg_dec) -> None:
+    """Register the encoder stages 1-6, the decoder stages 5d-1d and the
+    six side heads of the U^2-Net family on `m`."""
+    chans = [in_ch] + [out for (_h, _m, out) in cfg_enc]
+    for i, (height, mid, out) in enumerate(cfg_enc, start=1):
+        setattr(m, f"stage{i}", RSU(height, chans[i - 1], mid, out, half))
+    m.stage5 = RSU4F(chans[4], f_mid, f_out, half)
+    m.stage6 = RSU4F(f_out, f_mid, f_out, half)
+    m.stage5d = RSU4F(2 * f_out, f_mid, f_out, half)
+    # decoder stage i takes [upsampled previous decoder, skip i]
+    prev = f_out
+    for i, (height, mid, out) in zip((4, 3, 2, 1), cfg_dec):
+        setattr(m, f"stage{i}d", RSU(height, prev + chans[i], mid, out, half))
+        prev = out
+    side_in = [cfg_dec[3][2], cfg_dec[2][2], cfg_dec[1][2], cfg_dec[0][2],
+               f_out, f_out]
+    for i, c in enumerate(side_in, start=1):
+        setattr(m, f"side{i}", nn.Conv2d(c, out_ch, 3, padding=1))
+
+
+def _body(m: nn.Module, hx: torch.Tensor, in_hw) -> list:
+    """The encoder-decoder from `hx`: the six side logits d1..d6, float32,
+    upsampled to in_hw."""
+    skips = []
+    for i in range(1, 5):
+        hx = getattr(m, f"stage{i}")(hx)
+        skips.append(hx)
+        hx = _maxpool2(hx)
+    hx5 = m.stage5(hx)
+    hx6 = m.stage6(_maxpool2(hx5))
+
+    # decoder
+    hx5d = m.stage5d(torch.cat([upsample_like(hx6, hx5.shape[2:]), hx5], 1))
+    dec = [hx5d]
+    hx = hx5d
+    for i in (4, 3, 2, 1):
+        skip = skips[i - 1]
+        hxup = upsample_like(hx, skip.shape[2:])
+        hx = getattr(m, f"stage{i}d")(torch.cat([hxup, skip], 1))
+        dec.append(hx)
+
+    # side outputs (d1..d6) in float32
+    feats = (dec[4], dec[3], dec[2], dec[1], dec[0], hx6)
+    return [upsample_like(getattr(m, f"side{i}")(f.to(torch.float32)), in_hw)
+            for i, f in enumerate(feats, start=1)]
+
+
 class U2NET(nn.Module):
     """Full U^2-Net (or U2NETP with small=True). out_ch=1 for saliency.
 
@@ -153,58 +211,34 @@ class U2NET(nn.Module):
     def __init__(self, out_ch: int = 1, small: bool = False,
                  half: bool = False):
         super().__init__()
-        if small:  # U2NETP: every stage mid=16, out=64
-            cfg_enc = [(7, 16, 64), (6, 16, 64), (5, 16, 64), (4, 16, 64)]
-            f_mid, f_out = 16, 64
-            cfg_dec = [(4, 16, 64), (5, 16, 64), (6, 16, 64), (7, 16, 64)]
-        else:
-            cfg_enc = [(7, 32, 64), (6, 32, 128), (5, 64, 256), (4, 128, 512)]
-            f_mid, f_out = 256, 512
-            cfg_dec = [(4, 128, 256), (5, 64, 128), (6, 32, 64), (7, 16, 64)]
-        chans = [3] + [out for (_h, _m, out) in cfg_enc]
-        for i, (height, mid, out) in enumerate(cfg_enc, start=1):
-            setattr(self, f"stage{i}", RSU(height, chans[i - 1], mid, out, half))
-        self.stage5 = RSU4F(chans[4], f_mid, f_out, half)
-        self.stage6 = RSU4F(f_out, f_mid, f_out, half)
-        self.stage5d = RSU4F(2 * f_out, f_mid, f_out, half)
-        # decoder stage i takes [upsampled previous decoder, skip i]
-        prev = f_out
-        for i, (height, mid, out) in zip((4, 3, 2, 1), cfg_dec):
-            setattr(self, f"stage{i}d",
-                    RSU(height, prev + chans[i], mid, out, half))
-            prev = out
-        side_in = [cfg_dec[3][2], cfg_dec[2][2], cfg_dec[1][2], cfg_dec[0][2],
-                   f_out, f_out]
-        for i, c in enumerate(side_in, start=1):
-            setattr(self, f"side{i}", nn.Conv2d(c, out_ch, 3, padding=1))
+        _add_body(self, 3, out_ch, half, **(_SMALL if small else _FULL))
         self.outconv = nn.Conv2d(6 * out_ch, out_ch, 1)
 
     def forward(self, x):
-        skips = []
-        hx = x
-        for i in range(1, 5):
-            hx = getattr(self, f"stage{i}")(hx)
-            skips.append(hx)
-            hx = _maxpool2(hx)
-        hx5 = self.stage5(hx)
-        hx6 = self.stage6(_maxpool2(hx5))
-
-        # decoder
-        hx5d = self.stage5d(torch.cat([upsample_like(hx6, hx5.shape[2:]),
-                                       hx5], 1))
-        dec = [hx5d]
-        hx = hx5d
-        for i in (4, 3, 2, 1):
-            skip = skips[i - 1]
-            hxup = upsample_like(hx, skip.shape[2:])
-            hx = getattr(self, f"stage{i}d")(torch.cat([hxup, skip], 1))
-            dec.append(hx)
-
-        # side outputs (d1..d6) in float32 + fused d0
-        in_hw = x.shape[2:]
-        feats = (dec[4], dec[3], dec[2], dec[1], dec[0], hx6)
-        ds = [upsample_like(getattr(self, f"side{i}")(f.to(torch.float32)),
-                            in_hw)
-              for i, f in enumerate(feats, start=1)]
+        ds = _body(self, x, x.shape[2:])
         d0 = self.outconv(torch.cat(ds, 1))
         return [torch.sigmoid(d) for d in (d0, *ds)]
+
+
+class ISNet(nn.Module):
+    """ISNet / DIS (isnet-general-use, isnet-anime): a stride-2 3 x 3
+    `conv_in` (no BatchNorm, no ReLU in the public release) in front of
+    the full U^2-Net's encoder-decoder, and no fuse conv.
+
+    forward takes (B, 3, H, W) float32 and returns [sigmoid(d1), ...,
+    sigmoid(d6)], each (B, out_ch, H, W) float32: the side heads are
+    upsampled to the input's size, past the stride of conv_in.
+    """
+
+    def __init__(self, out_ch: int = 1, half: bool = False):
+        super().__init__()
+        self.conv_in = nn.Conv2d(3, 64, 3, stride=2, padding=1)
+        self.dtype = torch.bfloat16 if half else torch.float32
+        _add_body(self, 64, out_ch, half, **_FULL)
+
+    def forward(self, x):
+        conv = self.conv_in
+        hxin = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), None,
+                        stride=2, padding=1)
+        hxin = hxin + conv.bias.to(self.dtype)[:, None, None]
+        return [torch.sigmoid(d) for d in _body(self, hxin, x.shape[2:])]

@@ -553,3 +553,90 @@ def test_quantize_flat_kernel_palette_kinds(cuda, bhw, k_real, palette):
     assert torch.equal(K7.stack_planes(K7.quantize_planes(off, a_u8, pal,
                                                           k_real, thr), h, w),
                        ref)
+
+
+# ---------------------------------------------------------------------------
+# the cutout path on the card: GrabCut and ISNet against the CPU port
+# ---------------------------------------------------------------------------
+
+def test_grabcut_core_card_matches_cpu(cuda):
+    """GrabCut (10 alternations, split-merge polish) on a 120 x 160 scene:
+    foreground IoU >= 0.99 between the card and the CPU, the known pixels
+    passed through, and the same bytes on a second call on the card."""
+    from image_segmenter_tpu_torch.utils.seeds import config4_rect, \
+        portrait_scene
+    from image_segmenter_tpu_torch.compat.grabcut import apply_grabcut
+
+    img, _ = portrait_scene(120, 160, 3)
+    rect = config4_rect(120, 160)
+    got = apply_grabcut(img, rect_xywh=rect, iterations=10)
+    ref = apply_grabcut(img, rect_xywh=rect, iterations=10, device="cpu")
+    fg_g, fg_c = (got == 1) | (got == 3), (ref == 1) | (ref == 3)
+    assert (fg_g & fg_c).sum() / max((fg_g | fg_c).sum(), 1) >= 0.99
+    x, y, w, h = rect
+    outside = np.ones(img.shape[:2], bool)
+    outside[y:y + h, x:x + w] = False
+    assert (got[outside] == 0).all()
+    assert np.array_equal(got, apply_grabcut(img, rect_xywh=rect,
+                                             iterations=10))
+
+
+def _ellipse_masks(seed, n, h, w):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for _ in range(n):
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.15, 0.4) * h, rng.uniform(0.15, 0.4) * w
+        m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        out.append(m ^ (rng.random((h, w)) < 0.02))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+@pytest.mark.parametrize("hw,lanes", [((120, 160), 10), ((256, 192), 10),
+                                      ((1024, 768), 2)])
+def test_grabcut_mask_energy_lanes_equal_one_lane_calls(cuda, hw, lanes):
+    """On the card, the standardized energy of each lane equals a one-lane
+    call's bit for bit: ten lanes at the polish's coarse search, two at
+    the full-resolution acceptance (config 4's 1024 x 768)."""
+    from image_segmenter_tpu_torch.solvers import grabcut as GC
+    from image_segmenter_tpu_torch.utils.seeds import portrait_scene
+
+    img, _ = portrait_scene(*hw, 5)
+    im = GC.prepare(torch.from_numpy(img).to(cuda))
+    masks = _ellipse_masks(6, lanes, *hw).to(cuda)
+    batched = GC.mask_energy(im, masks)
+    single = torch.cat([GC.mask_energy(im, m[None]) for m in masks])
+    assert torch.equal(batched, single), (batched - single).abs().max()
+
+
+def test_grabcut_mask_energy_card_matches_cpu(cuda):
+    """The card's standardized energies within 1e-5 relative of the CPU's
+    on the same masks (120 x 160, four lanes)."""
+    from image_segmenter_tpu_torch.solvers import grabcut as GC
+    from image_segmenter_tpu_torch.utils.seeds import portrait_scene
+
+    img, _ = portrait_scene(120, 160, 5)
+    masks = _ellipse_masks(7, 4, 120, 160)
+    got = GC.mask_energy(GC.prepare(torch.from_numpy(img).to(cuda)),
+                         masks.to(cuda)).cpu()
+    ref = GC.mask_energy(GC.prepare(torch.from_numpy(img)), masks)
+    rel = ((got.double() - ref.double()).abs() / ref.double().abs()).max()
+    assert rel <= 1e-5, rel
+
+
+def test_isnet_rembg_card_matches_cpu(cuda):
+    """rembg with ISNet (1024 x 1024 input, seeded weights) on 384 x 512:
+    sharp alpha agreement >= 0.99 between the card and the CPU (the bf16
+    convolutions round by library), alpha in {0, 255}."""
+    from image_segmenter_tpu_torch.utils.seeds import portrait_scene
+    from image_segmenter_tpu_torch.compat.rembg_infer import \
+        rembg_remove_bgr_to_rgba
+
+    bgr, _ = portrait_scene(384, 512, 4)
+    got = rembg_remove_bgr_to_rgba(bgr, model="isnet-general-use")
+    ref = rembg_remove_bgr_to_rgba(bgr, model="isnet-general-use",
+                                   device="cpu")
+    assert got.shape == ref.shape == (384, 512, 4)
+    assert np.isin(got[..., 3], (0, 255)).all()
+    assert (got[..., 3] == ref[..., 3]).mean() >= 0.99

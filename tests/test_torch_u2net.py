@@ -93,5 +93,15 @@ def test_session_seeded_init_is_deterministic():
     fan_in = w[0].numel()
     assert abs(float(w.std()) * np.sqrt(fan_in) - 1.0) < 0.15
     assert float(w.abs().max()) <= 2.0 / 0.87962566103423978 / np.sqrt(fan_in)
-    with pytest.raises(NotImplementedError):
-        TR.Session("isnet-general-use", device="cpu")
+    # ISNet: the same seeded init covers its conv_in
+    c = TR.Session("isnet-general-use", device="cpu", seed=3)
+    d = TR.Session("isnet-general-use", device="cpu", seed=3)
+    assert not c.weights_loaded
+    for (ka, va), (kb, vb) in zip(c.module.state_dict().items(),
+                                  d.module.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)
+    w = c.module.conv_in.weight.detach()
+    fan_in = w[0].numel()
+    assert abs(float(w.std()) * np.sqrt(fan_in) - 1.0) < 0.15
+    assert float(w.abs().max()) <= 2.0 / 0.87962566103423978 / np.sqrt(fan_in)
+    assert not c.module.conv_in.bias.any()
