@@ -71,6 +71,20 @@ Phases, each raising (and exiting non-zero) on failure:
    agreement >= 0.99), and the seeded ISNet written to .onnx by the
    port's writer, loaded by a Session (complete, the seeded session's
    mask bytes) and by tools/verify_checkpoint.verify.
+12. region cleanup at 4K on image 0 of phase 4's output (the k-16
+   palette, alpha in {0, 255}): analyze_regions and merge_small_regions
+   (min size 100, connectivity 8; the passes, and the regions under 100
+   before and after), get_region_boundaries, flood_fill_region at a fixed seed,
+   trim_tendrils (threshold 2, 30 iterations) on the merged frame, and on
+   a 1080 x 1920 crop of it the five smoothers at strength 0.5,
+   apply_boundary_smoothing_global (cap 100, tendrils on; its 30 s clock
+   must not be what ends it) and apply_custom_morphological_smoothing;
+   each step twice (same bytes), opaque colours from its input's palette,
+   warm walls; compare_smoothing_algorithms entry by entry against the
+   direct calls; the device's component_stats beside the native
+   union-find on the same frame (equal labels, sizes and bboxes) with the
+   host reads of its fixpoint; and card against CPU on a 270 x 480 crop
+   (equal bytes; gaussian and bilateral within one step, 99 % equal).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -95,8 +109,12 @@ from image_segmenter_tpu_torch.bench import micro_quantize as BENCH_QUANT
 from image_segmenter_tpu_torch.compat import _perceptual as PERCEPTUAL
 from image_segmenter_tpu_torch.compat import color_simplify as CS
 from image_segmenter_tpu_torch.compat import grabcut as GRABCUT
+from image_segmenter_tpu_torch.compat import harness as HARNESS
 from image_segmenter_tpu_torch.compat import matting_refine as REFINE
+from image_segmenter_tpu_torch.compat import region_cleanup as REGION_CLEANUP
 from image_segmenter_tpu_torch.compat import rembg_infer as REMBG
+from image_segmenter_tpu_torch.compat import tendril_trimming as TENDRILS
+from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels import hist_variants as K8
 from image_segmenter_tpu_torch.kernels import histogram as KH
@@ -107,6 +125,9 @@ from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 from image_segmenter_tpu_torch.models import onnx_writer as ONNX_WRITER
 from image_segmenter_tpu_torch.models import registry as REG
+from image_segmenter_tpu_torch.ops import connected_components as CCOMP
+from image_segmenter_tpu_torch.ops import native as NATIVE
+from image_segmenter_tpu_torch.ops.color import pack_rgb_u32 as PACK
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 from image_segmenter_tpu_torch.solvers import grabcut as GC
 from image_segmenter_tpu_torch.solvers import matting as MAT
@@ -233,20 +254,30 @@ def _bincount(x: torch.Tensor) -> torch.Tensor:
                           minlength=256 * x.shape[0]).reshape(-1, 256)
 
 
-def _device_operations(fn, calls: int = 10):
+def _device_operations(fn, calls: int = 10, attempts: int = 3):
     """Names of the device operations (kernels, memsets, copies) that
-    `calls` calls of `fn` put on the card, from torch.profiler."""
+    `calls` calls of `fn` put on the card, from torch.profiler.
+
+    The profiler can drop a record (one run counted 9 operations in 10
+    calls of a one-kernel function), never add one, so a count under
+    `calls` is taken again, up to `attempts` times; a count over `calls`
+    is returned at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if len(ops) >= calls:
+            break
+    return ops
 
 
 def check_histogram(label: str, dev) -> dict:
@@ -825,7 +856,8 @@ def check_output(out, k: int, b: int, h: int, w: int) -> None:
             fail(f"image {i}: an opaque colour is not in its palette")
 
 
-def run_slice(label: str) -> dict:
+def run_slice(label: str):
+    """Phase 4; returns the launches and image 0 of the RGBA output."""
     imgs = photo_batch(BATCH, H4K, W4K, seed=0)
     pipe = Pipeline(model="u2netp", k=16, device="cuda")
     x = torch.from_numpy(imgs).to("cuda")
@@ -883,7 +915,7 @@ def run_slice(label: str) -> dict:
     print(f"[slice] stages ms: cnn {(t[1] - t[0]) * 1e3:.3f}, matting "
           f"{(t[2] - t[1]) * 1e3:.3f} ({KMV.LAUNCHES - mv0} matvec launches), "
           f"quantize {(t[3] - t[2]) * 1e3:.3f} ({label})")
-    return launches
+    return launches, out[0][0].cpu().numpy()
 
 
 def card_vs_cpu(label: str) -> None:
@@ -1486,6 +1518,250 @@ def run_isnet(label: str) -> int:
     return k1
 
 
+# ---------------------------------------------------------------------------
+# phase 12: region cleanup, tendrils and the harness at 4K
+# ---------------------------------------------------------------------------
+
+REGION_MIN = 100                # analyze and merge: min size, connectivity 8
+REGION_CROP_HW = (1080, 1920)   # the smoothers and the harness
+REGION_SMALL_HW = (270, 480)    # card against CPU
+GLOBAL_ITERS = 100              # apply_boundary_smoothing_global's cap
+GRAY = (128, 128, 128)          # the magenta cleanup's fallback colour
+SMOOTHERS = ("morphological", "bilateral", "contour", "gaussian",
+             "multiscale")
+
+
+def _opaque_colours(rgba) -> set:
+    opq = rgba[rgba[..., 3] > 0][:, :3].astype(np.int64)
+    return set(np.unique((opq[:, 0] << 16) | (opq[:, 1] << 8) | opq[:, 2])
+               .tolist())
+
+
+def _region_calls(img, merged, crop, dev, info):
+    """(name, input, call, palette check) for the steps of phase 12 after
+    the analysis and the merge: `img` is the quantized frame, `merged` the frame after
+    merge_small_regions, `crop` the smoothers' crop of it, all numpy; the
+    trim's iteration count goes to info["trim_iterations"]."""
+    RC, HARN, TRIM = REGION_CLEANUP, HARNESS, TENDRILS
+
+    def trim():
+        out, info["trim_iterations"], _ = TRIM.trim_tendrils(
+            merged, 2, 30, device=dev)
+        return out
+
+    h, w = img.shape[:2]
+    seed_xy = (w // 2, h // 2)
+    fill = next(iter(sorted(_opaque_colours(img))))
+    fill = ((fill >> 16) & 255, (fill >> 8) & 255, fill & 255)
+    calls = [
+        ("get_region_boundaries", img, lambda: RC.get_region_boundaries(
+            img, 8, device=dev), "boundary"),
+        ("flood_fill_region", img, lambda: RC.flood_fill_region(
+            img, seed_xy, fill, device=dev), "palette"),
+        ("trim_tendrils", merged, trim, "palette"),
+    ]
+    for m in SMOOTHERS:
+        # gaussian blends a colour into its neighbours (reference :966):
+        # its output is not held to the palette
+        calls.append((f"smooth {m}", crop,
+                      lambda m=m: RC.smooth_region_boundaries(
+                          crop, m, 0.5, device=dev),
+                      None if m == "gaussian" else "palette"))
+    calls += [
+        ("apply_boundary_smoothing_global", crop,
+         lambda: HARN.apply_boundary_smoothing_global(
+             crop, max_iterations=GLOBAL_ITERS, trim_tendrils_flag=True,
+             progress_callback=lambda i, c, msg: info.__setitem__(
+                 "global_iterations", i),
+             device=dev), "palette+gray"),
+        ("apply_custom_morphological_smoothing", crop,
+         lambda: HARN.apply_custom_morphological_smoothing(
+             crop, 5, "Ellipse", "Open then Close", device=dev), "palette"),
+    ]
+    return calls
+
+
+def _check_region_output(name, out, ref, kind):
+    if out.dtype != np.uint8 or out.shape != ref.shape:
+        fail(f"{name}: output is {out.dtype} {out.shape}, expected uint8 "
+             f"{ref.shape}")
+    if kind == "boundary":
+        if not (np.isin(out[..., 3], (0, 255)).all()
+                and (out[..., :3] == 255).all() and out[..., 3].any()):
+            fail(f"{name}: not white boundaries on transparency")
+        return
+    if kind is None:
+        return
+    allowed = _opaque_colours(ref)
+    if kind == "palette+gray":
+        allowed.add((GRAY[0] << 16) | (GRAY[1] << 8) | GRAY[2])
+    extra = _opaque_colours(out) - allowed
+    if extra:
+        fail(f"{name}: {len(extra)} opaque colours outside the input's "
+             f"palette, e.g. {hex(min(extra))}")
+
+
+def run_region_cleanup(label: str, frame: np.ndarray) -> None:
+    """Phase 12 on image 0 of phase 4's output (the k-16 palette, alpha in
+    {0, 255}): every step twice on the card (same bytes), its warm wall,
+    the merge passes and the tendril iterations; the device labels beside
+    the native union-find; card against CPU on a small crop."""
+    RC = REGION_CLEANUP
+    dev = "cuda"
+    h, w = frame.shape[:2]
+    zero_counts()
+    t_phase = time.perf_counter()
+
+    # analyze_regions
+    stats, ms1 = _timed(lambda: RC.analyze_regions(frame, REGION_MIN, 8, device=dev))
+    stats2, ms = _timed(lambda: RC.analyze_regions(frame, REGION_MIN, 8, device=dev))
+    keys = ("total_regions", "small_regions", "largest_region_size",
+            "smallest_region_size", "size_distribution", "region_colors",
+            "region_sizes")
+    if any(stats[k] != stats2[k] for k in keys) or \
+            [r["bbox"] for r in stats["all_regions"]] != \
+            [r["bbox"] for r in stats2["all_regions"]]:
+        fail("analyze_regions: a second call gives other statistics")
+    print(f"[regions] analyze_regions {h}x{w} (min {REGION_MIN}, conn 8): "
+          f"{stats['total_regions']} regions, {stats['small_regions']} under "
+          f"{REGION_MIN}, largest {stats['largest_region_size']}; first "
+          f"{ms1:.1f} ms, second {ms:.1f} ms, same statistics ({label})")
+
+    # the device labels beside the native union-find on the same frame
+    x = torch.as_tensor(frame, device=dev)
+    cid, valid = PACK(x[..., :3]), x[..., 3] > 0
+    CCOMP.component_stats(cid, valid, 8)
+    CCOMP.HOST_READS = 0
+    (labels, sizes, bbox), dev_ms = _timed(
+        lambda: CCOMP.component_stats(cid, valid, 8))
+    reads = CCOMP.HOST_READS
+    cid_np, valid_np = cid.cpu().numpy(), valid.cpu().numpy()
+    NATIVE.label_components_host(cid_np, valid_np, 8)
+    t0 = time.perf_counter()
+    host = NATIVE.label_components_host(cid_np, valid_np, 8)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for nm, a, b in zip(("labels", "sizes", "bbox"), (labels, sizes, bbox),
+                        host):
+        if not np.array_equal(a.cpu().numpy(), b):
+            fail(f"component_stats: the card's {nm} differ from the native "
+                 "union-find's")
+    print(f"[regions] component_stats {h}x{w} conn 8 on the card "
+          f"{dev_ms:.3f} ms ({reads} host reads of the fixpoint flag, "
+          f"{CCOMP.SWEEPS_PER_READ} sweeps a read), native union-find "
+          f"{host_ms:.3f} ms; labels, sizes and bboxes equal ({label})")
+
+    # the merge: its passes, the regions under the size before and after,
+    # and one pass's share beside the labels'
+    def merge(passes):
+        return RC.merge_small_regions(
+            frame, REGION_MIN, auto_merge_threshold=0.7, connectivity=8,
+            device=dev, progress_callback=lambda c, t, msg: passes.append(msg)
+            if msg.startswith("Pass") and msg.endswith("Analyzing regions...")
+            else None)
+
+    passes, again = [], []
+    merged, ms1 = _timed(lambda: merge(passes))
+    merged2, ms = _timed(lambda: merge(again))
+    if not np.array_equal(merged, merged2) or passes != again:
+        fail("merge_small_regions: a second call gives other bytes")
+    _check_region_output("merge_small_regions", merged, frame, "palette")
+    wts = torch.tensor([0.4, 0.3, 0.2, 0.1], device=dev)
+    thr = torch.tensor(0.7, device=dev)
+    _, pass_ms = _timed(lambda: RC._merge_pass(x, labels, sizes, REGION_MIN,
+                                               thr, wts, 8)[1].item())
+    # The JAX package merges every small region of a pass at once, from the
+    # pass-start image, and stops when a pass does not lower the count:
+    # regions that swap colours, and islands in transparency, stay small.
+    mx = torch.as_tensor(merged, device=dev)
+    _, msizes, _ = CCOMP.component_stats(PACK(mx[..., :3]), mx[..., 3] > 0, 8)
+    left = int(((msizes > 0) & (msizes < REGION_MIN)).sum())
+    print(f"[regions] merge_small_regions {h}x{w}: ok, second call "
+          f"identical; first {ms1:.1f} ms, warm {ms:.1f} ms; {len(passes)} "
+          f"passes (a pass: labels {dev_ms:.1f} ms on the first frame, the "
+          f"merge pass {pass_ms:.1f} ms); {stats['small_regions']} regions "
+          f"under {REGION_MIN} before, {left} left ({label})")
+    if not left < stats["small_regions"] or \
+            len(passes) > DEFAULTS.merge_max_passes:
+        fail(f"merge_small_regions: {left} regions under {REGION_MIN} left "
+             f"of {stats['small_regions']} after {len(passes)} passes")
+
+    # every step twice on the card; the tendrils, the smoothers and the
+    # harness take the merged frame, as the app's flow does
+    crop = np.ascontiguousarray(merged[:REGION_CROP_HW[0], :REGION_CROP_HW[1]])
+    info, firsts = {}, {}
+    for name, ref, call, kind in _region_calls(frame, merged, crop, dev,
+                                               info):
+        first, ms1 = _timed(call)
+        firsts[name] = first
+        again, ms = _timed(call)
+        if not np.array_equal(first, again):
+            fail(f"{name}: a second call gives other bytes")
+        _check_region_output(name, first, ref, kind)
+        extra = ""
+        if name == "trim_tendrils":
+            extra = f"; {info['trim_iterations']} iterations"
+        if name == "apply_boundary_smoothing_global":
+            # its guards, not its 30 s clock, must end it
+            extra = (f"; {info['global_iterations']} iterations (cap "
+                     f"{GLOBAL_ITERS}, tendrils on)")
+            if max(ms1, ms) >= 0.5 * 30e3:
+                fail(f"{name} took {max(ms1, ms):.0f} ms: its 30 s timeout "
+                     "could end it, so a second call need not match")
+        print(f"[regions] {name} {ref.shape[0]}x{ref.shape[1]}: ok, second "
+              f"call identical; first {ms1:.1f} ms, warm {ms:.1f} ms"
+              f"{extra} ({label})")
+
+    # compare_smoothing_algorithms: each entry the direct call's bytes
+    table = HARNESS.compare_smoothing_algorithms(crop, 0.5, device=dev)
+    for m in SMOOTHERS:
+        if not np.array_equal(table[m][0], firsts[f"smooth {m}"]):
+            fail(f"compare_smoothing_algorithms: the {m} entry is not the "
+                 "direct call's bytes")
+    print(f"[regions] compare_smoothing_algorithms {REGION_CROP_HW[0]}x"
+          f"{REGION_CROP_HW[1]}: every entry the direct call's bytes; "
+          + ", ".join(f"{m} {table[m][1] * 1e3:.1f} ms" for m in SMOOTHERS)
+          + f" ({label})")
+
+    # card against CPU on a small crop of the frame and the merged frame
+    t_small = time.perf_counter()
+    sh, sw = REGION_SMALL_HW
+    small = np.ascontiguousarray(frame[:sh, :sw])
+    small_crop = np.ascontiguousarray(merged[:sh, :sw])
+    res = {d: [(name, call()) for name, _, call, _ in
+               _region_calls(small, small_crop, small_crop, d, {})]
+           for d in (dev, "cpu")}
+    a_dev = RC.analyze_regions(small, REGION_MIN, 8, device=dev)
+    a_cpu = RC.analyze_regions(small, REGION_MIN, 8, device="cpu")
+    if any(a_dev[k] != a_cpu[k] for k in keys):
+        fail("analyze_regions: card and CPU statistics differ")
+    for d in (dev, "cpu"):
+        res[d].insert(0, ("merge_small_regions", RC.merge_small_regions(
+            small, REGION_MIN, auto_merge_threshold=0.7, connectivity=8,
+            device=d)))
+    worst = {}
+    for (name, g), (_, c) in zip(res[dev], res["cpu"]):
+        d = np.abs(g.astype(np.int32) - c.astype(np.int32))
+        if name in ("smooth gaussian", "smooth bilateral"):
+            share = float((d.max(-1) == 0).mean())
+            worst[name] = (int(d.max()), share)
+            if share < 0.99 or (name == "smooth gaussian" and d.max() > 1):
+                fail(f"{name}: card against CPU max {d.max()}, equal share "
+                     f"{share}")
+        elif d.max():
+            fail(f"{name}: card and CPU bytes differ ({(d > 0).sum()} "
+                 "values)")
+    print(f"[regions] {sh}x{sw} card against CPU: analyze_regions and "
+          f"{len(res[dev]) - len(worst)} steps equal bytes; "
+          + ", ".join(f"{n} max {m}, equal share {s:.6f}"
+                      for n, (m, s) in worst.items()) + f" ({label})")
+    launched = {k: v for k, v in read_counts().items() if v}
+    print(f"[regions] kernel launches in phase 12: {launched or 'none'} "
+          "(this slice has no CUDA kernel of its own)")
+    t_end = time.perf_counter()
+    print(f"[regions] phase 12: {t_end - t_phase:.1f} s, of which card "
+          f"against CPU {t_end - t_small:.1f} s ({label})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -1512,7 +1788,7 @@ def main() -> None:
         "quantize_flat": check_quantize_flat(label, dev),
         "hist_variants": check_hist_variants(label, dev),
     }
-    launches = run_slice(label)
+    launches, frame = run_slice(label)
     card_vs_cpu(label)
     launches.update(run_variants(label))
     run_compat(label)
@@ -1520,6 +1796,7 @@ def main() -> None:
     run_quantizers(label)
     run_grabcut(label)
     run_isnet(label)
+    run_region_cleanup(label, frame)
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

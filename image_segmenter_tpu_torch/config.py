@@ -8,6 +8,7 @@ Only the fields this port's code reads are copied here.
 - kmeans random_state=42, n_init=10 ..... app/processing/color_simplify.py:79-81
 - perceptual_fast max dim 512 / 5000 .... app/processing/color_simplify.py:608,632
 - grabcut iterations 10 ................. app/ui/main_window.py:300,318,363,365
+- region-merge pass cap 20 .............. app/processing/region_cleanup.py:368
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ class Defaults:
     # (color_simplify.py:90) and perceptual's map of LAB pixels against RGB
     # centres (color_simplify.py:544).
     bug_compat: bool = False
+    # Region cleanup: the most merge passes merge_small_regions makes
+    merge_max_passes: int = 20
 
 
 DEFAULTS = Defaults()

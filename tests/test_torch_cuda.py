@@ -640,3 +640,96 @@ def test_isnet_rembg_card_matches_cpu(cuda):
     assert got.shape == ref.shape == (384, 512, 4)
     assert np.isin(got[..., 3], (0, 255)).all()
     assert (got[..., 3] == ref[..., 3]).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# region cleanup and tendrils: the card against the CPU (no kernel of their
+# own; torch ops whose integer results must not depend on the device)
+# ---------------------------------------------------------------------------
+
+def _region_image(h, w, seed):
+    rng = np.random.default_rng(seed)
+    pal = rng.integers(0, 256, (6, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    idx = (yy // max(1, h // 5) + xx // max(1, w // 6)) % 6
+    idx = np.where(rng.random((h, w)) < 0.08, rng.integers(0, 6, (h, w)), idx)
+    img = np.zeros((h, w, 4), np.uint8)
+    img[..., :3] = pal[idx]
+    img[..., 3] = 255
+    img[h // 8:h // 4, w // 8:w // 3, 3] = 0
+    return img
+
+
+def _spiral_ids(n):
+    """A one-pixel-wide spiral corridor (tests/test_torch_connected_components
+    .py has the same)."""
+    g = np.zeros((n, n), np.int32)
+    y, x, dy, dx = 0, 0, 0, 1
+    seen = np.zeros((n, n), bool)
+    for _ in range(n * n):
+        g[y, x] = 1
+        seen[y, x] = True
+        ny, nx = y + 2 * dy, x + 2 * dx
+        if not (0 <= ny < n and 0 <= nx < n) or seen[ny, nx]:
+            dy, dx = dx, -dy
+            ny, nx = y + 2 * dy, x + 2 * dx
+            if not (0 <= ny < n and 0 <= nx < n) or seen[ny, nx]:
+                break
+        for _ in range(2):
+            y, x = y + dy, x + dx
+            g[y, x] = 1
+            seen[y, x] = True
+    return g
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("shape", [(37, 53), (1, 60), (60, 1), (120, 160),
+                                   "spiral"])
+def test_component_stats_card_equals_cpu(cuda, shape, conn):
+    from image_segmenter_tpu_torch.ops import connected_components as CC
+
+    rng = np.random.default_rng(5)
+    if shape == "spiral":
+        cid = _spiral_ids(63)
+        valid = np.ones(cid.shape, bool)
+    else:
+        cid = rng.integers(0, 3, shape).astype(np.int32)
+        valid = rng.random(shape) > 0.1
+    cpu = CC.component_stats(torch.as_tensor(cid), torch.as_tensor(valid), conn)
+    card = CC.component_stats(torch.as_tensor(cid, device=cuda),
+                              torch.as_tensor(valid, device=cuda), conn)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+
+
+def test_chunked_fixpoint_on_the_card(cuda, monkeypatch):
+    from image_segmenter_tpu_torch.ops import connected_components as CC
+
+    img = _region_image(120, 160, 3)
+    cid = torch.as_tensor(img[..., :3].astype(np.int64), device=cuda)
+    key = (cid[..., 0] << 16) | (cid[..., 1] << 8) | cid[..., 2]
+    valid = torch.as_tensor(img[..., 3] > 0, device=cuda)
+    out = {}
+    for n in (1, 4):
+        monkeypatch.setattr(CC, "SWEEPS_PER_READ", n)
+        out[n] = CC.label_components(key, valid, 8)
+    assert torch.equal(out[1], out[4])
+
+
+def test_region_cleanup_card_equals_cpu(cuda):
+    from image_segmenter_tpu_torch.compat import region_cleanup as RC
+    from image_segmenter_tpu_torch.compat import tendril_trimming as TT
+
+    img = _region_image(120, 160, 0)
+    for conn in (4, 8):
+        np.testing.assert_array_equal(
+            RC.merge_small_regions(img, 40, connectivity=conn, device="cuda"),
+            RC.merge_small_regions(img, 40, connectivity=conn, device="cpu"))
+        np.testing.assert_array_equal(
+            RC.get_region_boundaries(img, conn, device="cuda"),
+            RC.get_region_boundaries(img, conn, device="cpu"))
+    for thr in (1, 2, 3):
+        g, gi, _ = TT.trim_tendrils(img, thr, device="cuda")
+        c, ci, _ = TT.trim_tendrils(img, thr, device="cpu")
+        np.testing.assert_array_equal(g, c)
+        assert gi == ci
