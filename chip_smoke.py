@@ -85,6 +85,26 @@ Phases, each raising (and exiting non-zero) on failure:
    union-find on the same frame (equal labels, sizes and bboxes) with the
    host reads of its fixpoint; and card against CPU on a 270 x 480 crop
    (equal bytes; gaussian and bilateral within one step, 99 % equal).
+13. the CLI (`cli.main` in this process) on seeded PNGs written by its own
+   codec: run A, 768 x 1024, u2netp rembg + kmeans 8 + cleanup +
+   morphological + trim 2 + stats; run B, a 384 x 512 portrait, GrabCut
+   at config 4's rect + portrait refine + a three-colour palette +
+   majority; run C, 768 x 1024, rembg with the default ISNet and no
+   simplification. Each twice (same bytes), with its wall, the output's
+   shape, alpha in {0, 255} after the sharp rembg, the opaque colours, the
+   stats JSON and K1's launches (A and C); export_svg of A's output; run A
+   again as `python -m image_segmenter_tpu_torch.cli` (the same bytes and
+   stats); run B's flags without the refine at 96 x 128 on the card and
+   the CPU (>= 0.99 of the pixels equal).
+14. training: pipeline/train on U^2-Netp at 320 x 320, batch 8, float32:
+   ms per step (median of 20 after 2 warm-up) and images per second, peak
+   memory, the loss falling from step 0 to step 20, the device's busy
+   share and largest operations from utils/profiling.capture_device_trace
+   over 3 steps, a checkpoint at step 10 restored bit for bit whose next
+   step's loss is the uninterrupted run's (1e-4), no port kernel launched,
+   and one step at 2 x 64 x 64 on the card against the CPU (loss 1e-4
+   relative, gradients relative L2 0.1 median and 0.25 each, statistics
+   1e-3). Phase 4 also holds Pipeline.run's outputs to their sha256.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -92,16 +112,20 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch import cli as CLI
 from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
 from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
@@ -125,14 +149,18 @@ from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 from image_segmenter_tpu_torch.models import onnx_writer as ONNX_WRITER
 from image_segmenter_tpu_torch.models import registry as REG
+from image_segmenter_tpu_torch.models.u2net import U2NET
 from image_segmenter_tpu_torch.ops import connected_components as CCOMP
 from image_segmenter_tpu_torch.ops import native as NATIVE
 from image_segmenter_tpu_torch.ops.color import pack_rgb_u32 as PACK
+from image_segmenter_tpu_torch.pipeline import train as TRAIN
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 from image_segmenter_tpu_torch.solvers import grabcut as GC
 from image_segmenter_tpu_torch.solvers import matting as MAT
 from image_segmenter_tpu_torch.tools import verify_checkpoint as VERIFY
+from image_segmenter_tpu_torch.utils import profiling as PROF
 from image_segmenter_tpu_torch.utils import seeds as SEEDS
+from image_segmenter_tpu_torch.utils import svg_export as SVG
 from image_segmenter_tpu_torch.utils.backend import strict_f32
 
 BATCH, H4K, W4K = 4, 2160, 3840
@@ -179,6 +207,11 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
                       "bench/micro_hist_nibble.py:93"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
+# sha256 (first 16 hex digits) of Pipeline.run's outputs on phase 4's batch,
+# unchanged since the kernels' redesigns kept every bit
+# (bench/micro_precompute_hist.py cuda pipeline prints the same)
+MAIN_PATH_SHA256 = {"rgba": "9cf4123f94c4acdf", "alpha": "e349a936c097a596",
+                    "palettes": "eae64cfc02e36e26"}
 VARIANT_PATH = ("matvec_stack", "matvec_recompute")
 MICRO_PATH = ("quantize_flat", "hist_variants")
 
@@ -879,6 +912,11 @@ def run_slice(label: str):
         fail(f"the main path's launches a run changed: {launches}")
 
     check_output(out, 16, BATCH, H4K, W4K)
+    sha = {name: BENCH_K12._sha(t) for name, t in zip(out._fields, out)}
+    print(f"[slice] sha256 of the outputs: {sha}")
+    if sha != MAIN_PATH_SHA256:
+        fail(f"the main path's outputs changed: {sha}, expected "
+             f"{MAIN_PATH_SHA256}")
     again = pipe.run(x)
     for a, b in zip(out, again):
         if not torch.equal(a, b):
@@ -1762,6 +1800,330 @@ def run_region_cleanup(label: str, frame: np.ndarray) -> None:
           f"against CPU {t_end - t_small:.1f} s ({label})")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the CLI on the card
+# ---------------------------------------------------------------------------
+
+CLI_HW = (768, 1024)          # runs A and C
+CLI_PORTRAIT_HW = (384, 512)  # run B
+CLI_SMALL_HW = (96, 128)      # run B's flags, card against CPU
+CLI_PALETTE = "ff0000,00ff00,0000ff"
+CLI_CARD_VS_CPU_MIN = 0.99
+
+
+def _cli(argv):
+    """cli.main in this process: (exit code, stdout, wall ms, K1 launches)."""
+    zero_counts()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = CLI.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), (time.perf_counter() - t0) * 1e3, \
+        read_counts()["histogram"]
+
+
+def _cli_twice(name, src, dst, flags):
+    """Two runs of one command line: exit 0, the same output bytes (and
+    stdout) both times; returns the decoded output, stdout, walls, K1."""
+    rc1, out1, ms1, k1 = _cli([src, dst, *flags])
+    first = open(dst, "rb").read()
+    rc2, out2, ms2, _ = _cli([src, dst, *flags])
+    if (rc1, rc2) != (0, 0):
+        fail(f"cli run {name}: exit codes {rc1}, {rc2}")
+    if open(dst, "rb").read() != first or out1 != out2:
+        fail(f"cli run {name}: a second run gives other bytes")
+    return CLI._load_rgba(dst), out1, (ms1, ms2), k1
+
+
+def _check_cli_rgba(name, rgba, hw, rgb=None, binary=False, colours=None,
+                    max_colours=None):
+    if rgba.dtype != np.uint8 or rgba.shape != (*hw, 4):
+        fail(f"cli run {name}: output is {rgba.dtype} {rgba.shape}")
+    if rgb is not None and not np.array_equal(rgba[..., :3], rgb):
+        fail(f"cli run {name}: the colour channels are not the input's")
+    if binary and not np.isin(rgba[..., 3], (0, 255)).all():
+        fail(f"cli run {name}: alpha is not in {{0, 255}} after sharp rembg")
+    opaque = _opaque_colours(rgba)
+    if colours is not None and not opaque <= colours:
+        fail(f"cli run {name}: opaque colours outside the palette")
+    # kmeans leaves the pixels out of its fit black (its reference's
+    # black-filter ladder), so black comes on top of the k centres
+    if max_colours is not None and len(opaque - {0}) > max_colours:
+        fail(f"cli run {name}: {len(opaque - {0})} opaque colours besides "
+             f"black > {max_colours}")
+
+
+def run_cli(label: str) -> None:
+    """Phase 13: `cli.main` in this process on seeded PNGs written by the
+    port's codec: run A (u2netp rembg, kmeans, cleanup, smoothing, trim,
+    stats), run B (GrabCut rect, portrait refine, custom palette, majority)
+    and run C (rembg with the UI's default ISNet, no simplification), each
+    twice; A once more through `python -m`; B's flags without the refine
+    on the card and on the CPU."""
+    t_phase = time.perf_counter()
+    h, w = CLI_HW
+    ph, pw = CLI_PORTRAIT_HW
+    rgb_a = photo_batch(1, h, w, seed=13)[0]
+    rgb_b = np.ascontiguousarray(SEEDS.portrait_scene(ph, pw, 24)[0][..., ::-1])
+    rect_b = ",".join(map(str, SEEDS.config4_rect(ph, pw)))
+    rgb_s = np.ascontiguousarray(
+        SEEDS.portrait_scene(*CLI_SMALL_HW, 25)[0][..., ::-1])
+    rect_s = ",".join(map(str, SEEDS.config4_rect(*CLI_SMALL_HW)))
+    palette = {int(c, 16) for c in CLI_PALETTE.split(",")}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, rgb in (("a", rgb_a), ("b", rgb_b), ("s", rgb_s)):
+            paths[name] = os.path.join(tmp, f"{name}.png")
+            with open(paths[name], "wb") as f:
+                f.write(CLI._png_encode(rgb))
+        flags_a = ["--rembg", "--model", "u2netp", "--colors", "8",
+                   "--algorithm", "kmeans", "--cleanup", "--smooth",
+                   "morphological", "--trim-tendrils", "2", "--stats", "-q"]
+        out_a = os.path.join(tmp, "a_out.png")
+        rgba, stdout, ms, k1 = _cli_twice("A", paths["a"], out_a, flags_a)
+        _check_cli_rgba("A", rgba, CLI_HW, binary=True, max_colours=8)
+        stats = json.loads(stdout[stdout.index("{"):])
+        if stats["color"]["image_size"] != [h, w] or \
+                stats["regions"]["total_regions"] <= 0:
+            fail(f"cli run A: --stats reads {stats}")
+        if k1 <= 0:
+            fail("cli run A: K1 was not launched (the Otsu sharp edges)")
+        print(f"[cli] A {h}x{w} rembg u2netp + kmeans 8 + cleanup + "
+              f"morphological + trim 2 + stats: ok, {len(_opaque_colours(rgba))}"
+              f" colours, {stats['regions']['total_regions']} regions, "
+              f"opaque share {(rgba[..., 3] > 0).mean():.3f}; wall "
+              f"{ms[0]:.1f} ms first, {ms[1]:.1f} ms second; K1 launches "
+              f"{k1} ({label})")
+        t0 = time.perf_counter()
+        svg = SVG.export_svg(rgba)
+        print(f"[cli] export_svg of run A's output: {svg.count('<path')} "
+              f"paths, {len(svg) / 1e6:.2f} MB, "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        # one layer a colour, none for a colour whose every region traces
+        # to fewer than three points
+        if not 0 < svg.count("<path") <= len(_opaque_colours(rgba)):
+            fail("export_svg: the layers do not match the opaque colours")
+
+        sub_out = os.path.join(tmp, "a_sub.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "image_segmenter_tpu_torch.cli",
+             paths["a"], sub_out, *flags_a], capture_output=True, text=True,
+            timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            fail(f"python -m image_segmenter_tpu_torch.cli: exit "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        if open(sub_out, "rb").read() != open(out_a, "rb").read() \
+                or proc.stdout != stdout:
+            fail("python -m image_segmenter_tpu_torch.cli: other bytes than "
+                 "the in-process run")
+        print(f"[cli] python -m image_segmenter_tpu_torch.cli (run A): exit "
+              f"0, the in-process bytes and stats; "
+              f"{time.perf_counter() - t0:.1f} s with its start-up")
+
+        flags_b = ["--grabcut-rect", rect_b, "--refine-portrait",
+                   "--palette", CLI_PALETTE, "--smooth", "majority", "-q"]
+        rgba, _, ms, _ = _cli_twice("B", paths["b"],
+                                    os.path.join(tmp, "b_out.png"), flags_b)
+        _check_cli_rgba("B", rgba, CLI_PORTRAIT_HW, colours=palette)
+        print(f"[cli] B {ph}x{pw} grabcut {rect_b} + refine + palette "
+              f"{CLI_PALETTE} + majority: ok, opaque share "
+              f"{(rgba[..., 3] > 0).mean():.3f}; wall {ms[0]:.1f} ms first, "
+              f"{ms[1]:.1f} ms second ({label})")
+
+        rgba, _, ms, k1 = _cli_twice("C", paths["a"],
+                                     os.path.join(tmp, "c_out.png"),
+                                     ["--rembg", "--no-simplify", "-q"])
+        _check_cli_rgba("C", rgba, CLI_HW, rgb=rgb_a, binary=True)
+        if k1 <= 0:
+            fail("cli run C: K1 was not launched (the Otsu sharp edges)")
+        print(f"[cli] C {h}x{w} rembg {DEFAULTS.rembg_model} (default) "
+              f"--no-simplify: ok, opaque share {(rgba[..., 3] > 0).mean():.3f}"
+              f"; wall {ms[0]:.1f} ms first, {ms[1]:.1f} ms second; K1 "
+              f"launches {k1} ({label})")
+
+        # card against CPU: GrabCut gives the CPU's mask (phase 10); the
+        # palette map and the majority vote are integer work
+        flags_s = ["--grabcut-rect", rect_s, "--palette", CLI_PALETTE,
+                   "--smooth", "majority", "-q"]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            dst = os.path.join(tmp, f"s_{dev}.png")
+            rc, _, ms, _ = _cli([paths["s"], dst, *flags_s, "--device", dev])
+            if rc != 0:
+                fail(f"cli card against CPU: exit {rc} on {dev}")
+            res[dev] = (CLI._load_rgba(dst), ms)
+        same = float((res["cuda"][0] == res["cpu"][0]).all(-1).mean())
+        print(f"[cli] run B's flags without the refine at "
+              f"{CLI_SMALL_HW[0]}x{CLI_SMALL_HW[1]}, card against CPU: "
+              f"{same:.6f} of the pixels equal in all four bytes (threshold "
+              f"{CLI_CARD_VS_CPU_MIN}: GrabCut's card-against-CPU bound of "
+              f"phase 10); card {res['cuda'][1]:.1f} ms, CPU "
+              f"{res['cpu'][1]:.1f} ms")
+        if same < CLI_CARD_VS_CPU_MIN:
+            fail(f"cli card against CPU: {same} < {CLI_CARD_VS_CPU_MIN}")
+    print(f"[cli] phase 13: {time.perf_counter() - t_phase:.1f} s ({label})")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: U^2-Netp training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_HW = 8, (320, 320)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 20
+TRAIN_SAVE_AT = 10            # the checkpoint holds the state after 10 steps
+TRAIN_PROFILED = 3
+TRAIN_SMALL = (2, 64, 64)     # card against CPU
+_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def train_batch(b: int, h: int, w: int, seed: int):
+    """Normalised photo-like images (B, 3, H, W) and blob masks (B, H, W)
+    in {0, 1}, from a seed."""
+    rng = np.random.default_rng(seed)
+    imgs = (photo_batch(b, h, w, seed).astype(np.float32) / 255.0 - _MEAN) / _STD
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    masks = np.zeros((b, h, w), np.float32)
+    for i in range(b):
+        for cy, cx, ry, rx in rng.uniform((0.2, 0.2, 0.1, 0.1),
+                                          (0.8, 0.8, 0.3, 0.3), (3, 4)):
+            masks[i][((yy / h - cy) / ry) ** 2 + ((xx / w - cx) / rx) ** 2
+                     < 1] = 1.0
+    return (torch.from_numpy(np.ascontiguousarray(imgs.transpose(0, 3, 1, 2))),
+            torch.from_numpy(masks))
+
+
+def _train_card_vs_cpu(label: str) -> None:
+    """One step's loss, gradients and new statistics from the same seeded
+    weights on the card and the CPU, on the batch and with the bounds of
+    tests/test_torch_cuda.py::test_train_step_card_matches_cpu (standard
+    normal images). Not on the photo-like batch: its smooth 64 x 64 images
+    leave the innermost BatchNorms tiny variances under large means, where
+    float32 E[y^2] - E[y]^2 cancels, and the gradients of two float32
+    implementations (the JAX package's and the port's on the CPU too)
+    differ by tens of percent, so no bound on a gradient tells a fault
+    from rounding there."""
+    b, h, w = TRAIN_SMALL
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.standard_normal((b, 3, h, w))
+                            .astype(np.float32))
+    masks = torch.from_numpy((rng.random((b, h, w)) > 0.6).astype(np.float32))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        module = U2NET(small=True).to(dev)
+        _, state = TRAIN.create_train_state(module, seed=0, input_hw=(h, w))
+        loss, grads, stats = TRAIN.loss_and_grads(module, state, imgs.to(dev),
+                                                  masks.to(dev))
+        res[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                    {k: v.cpu() for k, v in stats.items()})
+    (lg, gg, sg), (lc, gc, sc) = res["cuda"], res["cpu"]
+    rel, bias = [], 0.0
+    for k, g in gg.items():
+        if k.endswith("conv_s1.bias"):  # ahead of a BatchNorm: 0 exactly
+            bias = max(bias, float(g.abs().max()), float(gc[k].abs().max()))
+            continue
+        rel.append(float((g - gc[k]).norm() / gc[k].norm().clamp_min(1e-30)))
+    stats_err = max(float((v - sc[k]).abs().max()) for k, v in sg.items())
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"[train] card against CPU, one step at {b}x{h}x{w}: loss "
+          f"{lg:.6f} / {lc:.6f} (relative {loss_rel:.2e}, bound 1e-4); "
+          f"gradient relative L2 median {statistics.median(rel):.2e}, max "
+          f"{max(rel):.2e} (bounds 0.1, 0.25); conv biases ahead of a "
+          f"BatchNorm |g| <= {bias:.1e} (bound 1e-4); statistics max "
+          f"|diff| {stats_err:.2e} (bound 1e-3) ({label})")
+    if loss_rel > 1e-4 or statistics.median(rel) > 0.1 or max(rel) > 0.25 \
+            or bias > 1e-4 or stats_err > 1e-3:
+        fail("training step: card and CPU differ beyond the stated bounds")
+
+
+def run_train(label: str) -> None:
+    """Phase 14: `pipeline/train` on U^2-Netp at its published 320 x 320
+    input, batch 8, float32: warm-up, timed steps, peak memory, the loss
+    falling, the device's busy share from a profile, the checkpoint round
+    trip at step 10, and one step on the card against the CPU."""
+    t_phase = time.perf_counter()
+    b, (h, w) = TRAIN_BATCH, TRAIN_HW
+    module = U2NET(small=True).cuda()
+    tx, state = TRAIN.create_train_state(module, seed=0, input_hw=(h, w))
+    step = TRAIN.make_train_step(module, tx)
+    imgs, masks = train_batch(b, h, w, seed=14)
+    imgs, masks = imgs.cuda(), masks.cuda()
+    zero_counts()
+    losses, walls, saved = [], [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            if i == TRAIN_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            if state.step == TRAIN_SAVE_AT:
+                TRAIN.save_checkpoint(path, state)
+                saved = state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, imgs, masks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: v for k, v in read_counts().items() if v}
+        if launched:
+            fail(f"training step launched port kernels: {launched}")
+        ms = statistics.median(walls[TRAIN_WARMUP:]) * 1e3
+        last = TRAIN_TIMED
+        if not all(np.isfinite(losses)) or not losses[last] < losses[0]:
+            fail(f"training loss is not finite and falling: {losses}")
+        print(f"[train] U2NETP {b}x3x{h}x{w} float32, Adam 1e-3: "
+              f"{ms:.3f} ms/step (median of {TRAIN_TIMED} after "
+              f"{TRAIN_WARMUP} warm-up; {min(walls[TRAIN_WARMUP:]) * 1e3:.3f}"
+              f"-{max(walls[TRAIN_WARMUP:]) * 1e3:.3f}), "
+              f"{b / ms * 1e3:.1f} images/s; peak {peak / 2**30:.3f} GiB; loss "
+              f"step 0 {losses[0]:.6f}, step {last} {losses[last]:.6f} "
+              f"({label})")
+
+        trace = PROF.capture_device_trace(
+            lambda: [step(state, imgs, masks) for _ in range(TRAIN_PROFILED)],
+            os.path.join(tmp, "trace"))
+        busy_us = sum(t for _, t, _ in trace)
+        events = sum(c for _, _, c in trace)
+        if not trace:
+            fail("capture_device_trace saw no device operation")
+        print(f"[train] profile of {TRAIN_PROFILED} steps: device busy "
+              f"{busy_us / 1e3 / TRAIN_PROFILED:.3f} ms a step of "
+              f"{ms:.3f} unprofiled: busy share "
+              f"{busy_us / 1e3 / (TRAIN_PROFILED * ms):.3f}; "
+              f"{events / TRAIN_PROFILED:.0f} device operations a step; top 5: "
+              + "; ".join(f"{n[:60]} {t / 1e3 / TRAIN_PROFILED:.3f} ms x"
+                          f"{c // TRAIN_PROFILED}" for n, t, c in trace[:5]))
+
+        _, fresh = TRAIN.create_train_state(U2NET(small=True).cuda(), seed=1)
+        restored = TRAIN.restore_checkpoint(path, fresh)
+        for part in ("params", "batch_stats"):
+            for k, v in getattr(saved, part).items():
+                if not torch.equal(getattr(restored, part)[k], v):
+                    fail(f"checkpoint: {part} {k} is not bit-equal")
+        for m in ("mu", "nu"):
+            for k, v in saved.opt_state[m].items():
+                if not torch.equal(restored.opt_state[m][k], v):
+                    fail(f"checkpoint: Adam {m} {k} is not bit-equal")
+        if (restored.step, restored.opt_state["count"]) != (TRAIN_SAVE_AT,) * 2:
+            fail("checkpoint: the step or Adam's count changed")
+        _, loss = step(restored, imgs, masks)
+        ref = losses[TRAIN_SAVE_AT]
+        rel = abs(float(loss) - ref) / abs(ref)
+        print(f"[train] checkpoint at step {TRAIN_SAVE_AT} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB): every tensor "
+              f"bit-equal after the round trip; the next step's loss "
+              f"{float(loss):.6f} against {ref:.6f} uninterrupted (relative "
+              f"{rel:.2e}, bound 1e-4)")
+        if rel > 1e-4:
+            fail(f"checkpoint: the restored step's loss differs by {rel}")
+    _train_card_vs_cpu(label)
+    print(f"[train] phase 14: {time.perf_counter() - t_phase:.1f} s ({label})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -1797,6 +2159,8 @@ def main() -> None:
     run_grabcut(label)
     run_isnet(label)
     run_region_cleanup(label, frame)
+    run_cli(label)
+    run_train(label)
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -10,3 +10,7 @@ Routing rule (utils/backend.targets_cuda): a CUDA tensor goes to the
 kernel, a CPU tensor to the kernel's plain PyTorch version. Nothing falls
 back from one to the other.
 """
+
+__version__ = "0.1.0"
+
+from image_segmenter_tpu_torch.config import Defaults  # noqa: E402,F401

@@ -18,7 +18,7 @@ def apply_grabcut(
     bgr_image: np.ndarray,
     rect_xywh: Optional[Tuple[int, int, int, int]] = None,
     init_mask: Optional[np.ndarray] = None,
-    iterations: Optional[int] = None,
+    iterations: int = 10,
     *,
     splitmerge: Optional[bool] = None,
     device="cuda",
@@ -29,8 +29,8 @@ def apply_grabcut(
     mask init: values clipped to {0,1,2,3} (cv2 GC_INIT_WITH_MASK).
     Returns uint8 mask {0=BGD, 1=FGD, 2=PR_BGD, 3=PR_FGD}.
 
-    iterations: EM alternations (default config.Defaults
-    .grabcut_iterations, the reference UI's 10).
+    iterations: EM alternations (the reference UI's 10, config.Defaults
+    .grabcut_iterations).
     splitmerge (keyword-only extension, default config.Defaults
     .grabcut_splitmerge): False reproduces the plain cv2-style alternation;
     True runs the split-merge polish (solvers/grabcut._splitmerge_polish).
@@ -54,6 +54,6 @@ def apply_grabcut(
     elif init_mask is None:
         raise ValueError("Either rect_xywh or init_mask must be provided")
 
-    out = GC.grabcut_core(bgr_image, mask, iterations=iterations,
+    out = GC.grabcut_core(bgr_image, mask, iterations=int(iterations),
                           splitmerge=splitmerge, device=device)
     return out.cpu().numpy()

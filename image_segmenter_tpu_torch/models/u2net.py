@@ -12,6 +12,10 @@ in bfloat16, normalises in float32, applies ReLU and casts back to
 bfloat16. ISNet's conv_in runs in bfloat16 too, bias added in bfloat16.
 The side convolutions and the fuse conv run in float32, and the side
 outputs are float32 before their upsample.
+
+`train=True` (the `train` argument of the Flax modules; `nn.Module.training`
+does not switch it) normalises with the batch's statistics as Flax's
+BatchNorm does and updates the running buffers (pipeline/train.py).
 """
 
 from __future__ import annotations
@@ -69,15 +73,29 @@ class REBNCONV(nn.Module):
         self.bn_s1 = nn.BatchNorm2d(out_ch, eps=1e-5)
         self.dtype = torch.bfloat16 if half else torch.float32
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         conv, bn = self.conv_s1, self.bn_s1
         y = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), None,
                      padding=conv.padding, dilation=conv.dilation)
         y = y + conv.bias.to(self.dtype)[:, None, None]
-        # inference BatchNorm in float32, in Flax's order of operations
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        y = (y.to(torch.float32) - bn.running_mean[:, None, None]) \
-            * mul[:, None, None] + bn.bias[:, None, None]
+        y = y.to(torch.float32)
+        if train:
+            # Flax's BatchNorm: float32 statistics over (N, H, W), the fast
+            # biased variance E[y^2] - E[y]^2 clipped at 0, and the running
+            # buffers moved by momentum 0.9 with that biased variance
+            # (BatchNorm2d would move them with the unbiased one)
+            mean = y.mean((0, 2, 3))
+            var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                bn.running_mean.copy_(0.9 * bn.running_mean
+                                      + (1.0 - 0.9) * mean)
+                bn.running_var.copy_(0.9 * bn.running_var + (1.0 - 0.9) * var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        # BatchNorm in float32, in Flax's order of operations
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (y - mean[:, None, None]) * mul[:, None, None] \
+            + bn.bias[:, None, None]
         return torch.relu(y).to(self.dtype)
 
 
@@ -98,23 +116,24 @@ class RSU(nn.Module):
                     REBNCONV(2 * mid_ch, mid_ch, 1, half))
         self.rebnconv1d = REBNCONV(2 * mid_ch, out_ch, 1, half)
 
-    def forward(self, x):
-        hxin = self.rebnconvin(x)
+    def forward(self, x, train: bool = False):
+        hxin = self.rebnconvin(x, train)
         # encoder
         enc = []
         hx = hxin
         for i in range(1, self.height):
-            hx = getattr(self, f"rebnconv{i}")(hx)
+            hx = getattr(self, f"rebnconv{i}")(hx, train)
             enc.append(hx)
             if i < self.height - 1:
                 hx = _maxpool2(hx)
         # bottom (dilated)
-        hx = getattr(self, f"rebnconv{self.height}")(hx)
+        hx = getattr(self, f"rebnconv{self.height}")(hx, train)
         # decoder
         for i in range(self.height - 1, 0, -1):
             skip = enc[i - 1]
             hx = upsample_like(hx, skip.shape[2:])
-            hx = getattr(self, f"rebnconv{i}d")(torch.cat([hx, skip], 1))
+            hx = getattr(self, f"rebnconv{i}d")(torch.cat([hx, skip], 1),
+                                                train)
         return hx + hxin
 
 
@@ -133,15 +152,15 @@ class RSU4F(nn.Module):
         self.rebnconv2d = REBNCONV(2 * mid_ch, mid_ch, 2, half)
         self.rebnconv1d = REBNCONV(2 * mid_ch, out_ch, 1, half)
 
-    def forward(self, x):
-        hxin = self.rebnconvin(x)
-        hx1 = self.rebnconv1(hxin)
-        hx2 = self.rebnconv2(hx1)
-        hx3 = self.rebnconv3(hx2)
-        hx4 = self.rebnconv4(hx3)
-        hx3d = self.rebnconv3d(torch.cat([hx4, hx3], 1))
-        hx2d = self.rebnconv2d(torch.cat([hx3d, hx2], 1))
-        hx1d = self.rebnconv1d(torch.cat([hx2d, hx1], 1))
+    def forward(self, x, train: bool = False):
+        hxin = self.rebnconvin(x, train)
+        hx1 = self.rebnconv1(hxin, train)
+        hx2 = self.rebnconv2(hx1, train)
+        hx3 = self.rebnconv3(hx2, train)
+        hx4 = self.rebnconv4(hx3, train)
+        hx3d = self.rebnconv3d(torch.cat([hx4, hx3], 1), train)
+        hx2d = self.rebnconv2d(torch.cat([hx3d, hx2], 1), train)
+        hx1d = self.rebnconv1d(torch.cat([hx2d, hx1], 1), train)
         return hx1d + hxin
 
 
@@ -174,25 +193,26 @@ def _add_body(m: nn.Module, in_ch: int, out_ch: int, half: bool, cfg_enc,
         setattr(m, f"side{i}", nn.Conv2d(c, out_ch, 3, padding=1))
 
 
-def _body(m: nn.Module, hx: torch.Tensor, in_hw) -> list:
+def _body(m: nn.Module, hx: torch.Tensor, in_hw, train: bool = False) -> list:
     """The encoder-decoder from `hx`: the six side logits d1..d6, float32,
     upsampled to in_hw."""
     skips = []
     for i in range(1, 5):
-        hx = getattr(m, f"stage{i}")(hx)
+        hx = getattr(m, f"stage{i}")(hx, train)
         skips.append(hx)
         hx = _maxpool2(hx)
-    hx5 = m.stage5(hx)
-    hx6 = m.stage6(_maxpool2(hx5))
+    hx5 = m.stage5(hx, train)
+    hx6 = m.stage6(_maxpool2(hx5), train)
 
     # decoder
-    hx5d = m.stage5d(torch.cat([upsample_like(hx6, hx5.shape[2:]), hx5], 1))
+    hx5d = m.stage5d(torch.cat([upsample_like(hx6, hx5.shape[2:]), hx5], 1),
+                     train)
     dec = [hx5d]
     hx = hx5d
     for i in (4, 3, 2, 1):
         skip = skips[i - 1]
         hxup = upsample_like(hx, skip.shape[2:])
-        hx = getattr(m, f"stage{i}d")(torch.cat([hxup, skip], 1))
+        hx = getattr(m, f"stage{i}d")(torch.cat([hxup, skip], 1), train)
         dec.append(hx)
 
     # side outputs (d1..d6) in float32
@@ -205,7 +225,8 @@ class U2NET(nn.Module):
     """Full U^2-Net (or U2NETP with small=True). out_ch=1 for saliency.
 
     forward takes (B, 3, H, W) float32 and returns [sigmoid(d0), ...,
-    sigmoid(d6)], each (B, out_ch, H, W) float32.
+    sigmoid(d6)], each (B, out_ch, H, W) float32; with train=True the
+    BatchNorms use and record the batch's statistics.
     """
 
     def __init__(self, out_ch: int = 1, small: bool = False,
@@ -214,8 +235,8 @@ class U2NET(nn.Module):
         _add_body(self, 3, out_ch, half, **(_SMALL if small else _FULL))
         self.outconv = nn.Conv2d(6 * out_ch, out_ch, 1)
 
-    def forward(self, x):
-        ds = _body(self, x, x.shape[2:])
+    def forward(self, x, train: bool = False):
+        ds = _body(self, x, x.shape[2:], train)
         d0 = self.outconv(torch.cat(ds, 1))
         return [torch.sigmoid(d) for d in (d0, *ds)]
 

@@ -109,14 +109,13 @@ def run_grabcut_workflow(
     bgr_full: np.ndarray,
     user_mask: Optional[np.ndarray] = None,
     rect_xywh: Optional[Tuple[int, int, int, int]] = None,
-    iterations: Optional[int] = None,
+    iterations: int = 10,
     device="cuda",
 ) -> Optional[np.ndarray]:
     """Full _on_run_grabcut flow: seeds -> apply_grabcut -> RGBA composite.
 
     Returns the RGBA cutout over transparency, or None when unseeded
-    (main_window.py:363-371). iterations defaults to
-    config.Defaults.grabcut_iterations.
+    (main_window.py:363-371).
     """
     h_full, w_full = bgr_full.shape[:2]
     roi, seed_rect, init_mask = grabcut_seeds((h_full, w_full), user_mask, rect_xywh)

@@ -733,3 +733,43 @@ def test_region_cleanup_card_equals_cpu(cuda):
         c, ci, _ = TT.trim_tendrils(img, thr, device="cpu")
         np.testing.assert_array_equal(g, c)
         assert gi == ci
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One U^2-Netp training step (64 x 64, batch 2) from the same seeded
+    weights on the card and on the CPU, float32 without TF32: the loss
+    within 1e-4 relative, each gradient within 0.25 relative L2 and their
+    median within 0.1, the new BatchNorm statistics within 1e-3. The
+    bounds are those tests/test_torch_train.py holds the CPU to against
+    the JAX package: the training BatchNorms over the tiny innermost maps
+    make float32 gradients differ by some percent with the order of sums
+    (the conv biases ahead of a BatchNorm, 0 in exact arithmetic, to 1e-4
+    absolute)."""
+    from image_segmenter_tpu_torch.models.u2net import U2NET
+    from image_segmenter_tpu_torch.pipeline import train as TR
+
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.standard_normal((2, 3, 64, 64))
+                            .astype(np.float32))
+    masks = torch.from_numpy((rng.random((2, 64, 64)) > 0.6)
+                             .astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        module = U2NET(small=True).to(dev)
+        tx, state = TR.create_train_state(module, seed=0)
+        loss, grads, stats = TR.loss_and_grads(module, state, imgs.to(dev),
+                                               masks.to(dev))
+        out[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                    {k: v.cpu() for k, v in stats.items()})
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    rel = []
+    for k, g in gg.items():
+        if k.endswith("conv_s1.bias"):
+            assert g.abs().max() <= 1e-4 and gc[k].abs().max() <= 1e-4, k
+            continue
+        rel.append(float((g - gc[k]).norm() / gc[k].norm().clamp_min(1e-30)))
+        assert rel[-1] <= 0.25, k
+    assert np.median(rel) <= 0.1
+    for k, v in sg.items():
+        assert (v - sc[k]).abs().max() <= 1e-3, k
