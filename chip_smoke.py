@@ -105,6 +105,20 @@ Phases, each raising (and exiting non-zero) on failure:
    and one step at 2 x 64 x 64 on the card against the CPU (loss 1e-4
    relative, gradients relative L2 0.1 median and 0.25 each, statistics
    1e-3). Phase 4 also holds Pipeline.run's outputs to their sha256.
+15. the device mesh, every slot on this card: Pipeline(sharding=
+   batch_sharding(make_mesh((2, 2)))) on phase 4's batch (outputs, the
+   dry run's boundary-band contract against phase 4's output, a
+   bit-identical second run, K1-K4 launches, the wall; and from phase 4's
+   CNN mask the sharded matting and quantize stages against the
+   unsharded bytes); refine_alpha_portrait_full_res split over (1, 4) on
+   phase 7's frame against the unsplit bytes; K2 and K3 on the solve's
+   row blocks (first, interior, last, and own blocks of 5, 8, 12 and 291
+   rows with their ghost rows) against their plain versions' bits and
+   against the whole image's rows; StagedPipeline (2, 1, 1) streaming
+   three distinct 4 x 2160 x 3840 batches, in order, under the dry run's
+   contract against the fused runs; graft_entry.dryrun_multichip(4); and
+   the data-parallel training step over two gloo ranks at U^2-Netp's
+   320 x 320, batch 8, 3 steps, against one rank.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -126,6 +140,7 @@ import numpy as np
 import torch
 
 from image_segmenter_tpu_torch import cli as CLI
+from image_segmenter_tpu_torch import graft_entry as GRAFT
 from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
 from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
@@ -153,8 +168,11 @@ from image_segmenter_tpu_torch.models.u2net import U2NET
 from image_segmenter_tpu_torch.ops import connected_components as CCOMP
 from image_segmenter_tpu_torch.ops import native as NATIVE
 from image_segmenter_tpu_torch.ops.color import pack_rgb_u32 as PACK
+from image_segmenter_tpu_torch.parallel import mesh as PM
 from image_segmenter_tpu_torch.pipeline import train as TRAIN
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
+from image_segmenter_tpu_torch.pipeline.staged import StagedPipeline, \
+    split_stage_meshes
 from image_segmenter_tpu_torch.solvers import grabcut as GC
 from image_segmenter_tpu_torch.solvers import matting as MAT
 from image_segmenter_tpu_torch.tools import verify_checkpoint as VERIFY
@@ -2124,6 +2142,246 @@ def run_train(label: str) -> None:
     print(f"[train] phase 14: {time.perf_counter() - t_phase:.1f} s ({label})")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the device mesh, every slot on this card
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 4
+MESH_BLOCKS = ((100, 5), (200, 8), (300, 12), (150, 291))  # (first row, rows)
+TRAIN_DP = (8, 320, 3)        # batch (4 a rank), input size, steps
+
+
+def _slots(n: int) -> list:
+    return [torch.device("cuda", torch.cuda.current_device())] * n
+
+
+def _contract(rgba, ref, imgs, what):
+    try:
+        return GRAFT.band_contract(rgba, ref, imgs, what)
+    except AssertionError as e:
+        fail(f"{what}: the dry run's boundary-band contract: {e}")
+
+
+def _differences(a, b) -> dict:
+    """Per output: how many bytes differ and in which images and rows."""
+    out = {}
+    for name, x, y in zip(a._fields, a, b):
+        d = (x != y)
+        if bool(d.any()):
+            per = d.reshape(d.shape[0], d.shape[1], -1).any(-1)
+            out[name] = {"bytes": int(d.sum()),
+                         "images": per.any(1).nonzero().flatten().tolist(),
+                         "rows": [int(per.any(0).nonzero().min()),
+                                  int(per.any(0).nonzero().max())]}
+    return out
+
+
+def _cnn_split(pipe_1, x, parts: int):
+    """Phase 4's CNN on the batch cut as `parts` slots cut it."""
+    return torch.cat([pipe_1.stages.cnn(pipe_1.session.module, x[a:b])
+                      for a, b in PM.split_bounds(x.shape[0], parts)])
+
+
+def _against_split_cnn(what: str, out, x, imgs, pipe_1, ref, parts: int):
+    """Hold a sharded run to the unsharded one. cuDNN rounds the CNN's
+    bfloat16 convolutions by batch size, so the CNN on a part of the batch
+    gives another u8 mask than on all of it (within 2 steps: the rounding
+    of bf16 between libraries and devices). Everything after the CNN is
+    held to bytes: the run must be the unsharded stages from the masks of
+    the CNN cut as the run cuts it. The dry run's boundary-band contract
+    against the unsharded output (phase 4's) is reported."""
+    m_all = pipe_1.stages.cnn(pipe_1.session.module, x)
+    m_cut = _cnn_split(pipe_1, x, parts)
+    dm = (m_all.int() - m_cut.int()).abs()
+    if int(dm.max()) > 2:
+        fail(f"{what}: the CNN on parts of the batch is {int(dm.max())} "
+             "steps from the whole batch's (bf16 rounding reaches 2)")
+    diff = _differences(out, pipe_1.run_from_mask(x, m_cut))
+    if diff:
+        fail(f"{what}: not the unsharded stages' bytes from its CNN masks: "
+             f"{diff}")
+    try:
+        agree, qerr = GRAFT.band_contract(out[0].cpu().numpy(),
+                                          ref[0].cpu().numpy(), imgs, what)
+        vs_all = (f"within it (alpha agreement {agree:.6f}, quantization "
+                  f"error {[(round(a, 3), round(c, 3)) for a, c in qerr]})")
+    except AssertionError as e:
+        vs_all = f"outside it: {e}"
+    return (f"the CNN at batch {x.shape[0] // parts} against {x.shape[0]}: "
+            f"{float((dm > 0).double().mean()):.6f} of the mask's bytes "
+            f"differ, by at most {int(dm.max())}; from those masks the "
+            f"unsharded stages' bytes; the dry run's contract against the "
+            f"unsharded output: {vs_all}")
+
+
+def _mesh_pipeline(label: str, x, imgs, pipe_1, ref) -> None:
+    mesh = PM.make_mesh((2, 2), devices=_slots(MESH_SLOTS))
+    pipe = Pipeline(model="u2netp", k=16, sharding=PM.batch_sharding(mesh))
+    pipe.run(x)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    out = pipe.run(x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if k in MAIN_PATH}
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the sharded Pipeline")
+    check_output(out, 16, BATCH, H4K, W4K)
+    again = pipe.run(x)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail("sharded Pipeline: a second run is not bit-identical")
+    held = _against_split_cnn("sharded Pipeline (2, 2)", out, x, imgs,
+                              pipe_1, ref, 2)
+    walls = []
+    for _ in range(5):
+        _, ms = _timed(lambda: pipe.run(x))
+        walls.append(ms)
+    _, ms_1 = _timed(lambda: pipe_1.run(x))
+    print(f"[mesh] Pipeline(u2netp, k=16, sharding=batch_sharding((2, 2) of "
+          f"{MESH_SLOTS} slots on one card)) {BATCH}x{H4K}x{W4K}: outputs ok, "
+          f"second run bit-identical, launches {launches}; {held}; warm "
+          f"{statistics.median(walls):.3f} ms/batch (median of 5: "
+          f"{', '.join(f'{t:.3f}' for t in walls)}), unsharded {ms_1:.3f} "
+          f"({label})")
+
+    mask = pipe_1.stages.cnn(pipe_1.session.module, x)
+    a = pipe.run_from_mask(x, mask)
+    b = pipe_1.run_from_mask(x, mask)
+    diff = _differences(a, b)
+    print(f"[mesh] matting (rows over 2 slots) and quantize stages sharded "
+          f"from phase 4's CNN mask against unsharded: "
+          f"{'the same bytes' if not diff else diff} ({label})")
+    _contract(a.rgba.cpu().numpy(), b.rgba.cpu().numpy(), imgs,
+              "sharded stages from one mask")
+
+
+def _mesh_refine(label: str) -> None:
+    h, w = COMPAT_HW
+    rgb, soft_alpha, user = compat_case(h, w, seed=7)
+    smesh = PM.make_mesh((1, MESH_SLOTS), devices=_slots(MESH_SLOTS))
+    REFINE.refine_alpha_portrait_full_res(rgb, soft_alpha, user, mesh=smesh)
+    one, ms_1 = _timed(lambda: REFINE.refine_alpha_portrait_full_res(
+        rgb, soft_alpha, user))
+    sh, ms_sh = _timed(lambda: REFINE.refine_alpha_portrait_full_res(
+        rgb, soft_alpha, user, mesh=smesh))
+    _check_alpha(sh, (h, w), "sharded full-resolution refine")
+    d = np.abs(sh.astype(np.int32) - one.astype(np.int32))
+    print(f"[mesh] refine_alpha_portrait_full_res {h}x{w} rows over (1, "
+          f"{MESH_SLOTS}): {'the unsplit bytes' if not d.any() else f'{int((d > 0).sum())} pixels differ, max {int(d.max())}'}; "
+          f"{ms_sh:.3f} ms split, {ms_1:.3f} ms unsplit ({label})")
+    if (d > 0).mean() >= 0.01 or d.max() > 2:
+        fail("sharded full-resolution refine: beyond the dry run's bound "
+             "(1 % of pixels, 2 steps)")
+
+
+def _mesh_blocks(label: str) -> None:
+    """K2 and K3 on the row blocks the sharded solve gives them: each
+    block extended by 2 rows on its interior edges; the kernels against
+    their plain versions' bits, and the block's own rows against the
+    whole image's."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    img = torch.rand((BATCH, 3, MH, MW), generator=g, device="cuda")
+    p = torch.randn((BATCH, MH, MW), generator=g, device="cuda")
+    whole = KP.precompute_planes(img, 1e-7)
+    whole_mv = KMV.matvec_planes(whole, img, p)
+    cuts = PM.split_bounds(MH, MESH_SLOTS)
+    blocks = [("first", *cuts[0]), ("interior", *cuts[1]),
+              ("last", *cuts[-1])] + [(f"{n} rows", r0, r0 + n)
+                                      for r0, n in MESH_BLOCKS]
+    errs = []
+    for name, r0, r1 in blocks:
+        e0, e1 = max(0, r0 - 2), min(MH, r1 + 2)
+        im = img[:, :, e0:e1].contiguous()
+        pp = p[:, e0:e1].contiguous()
+        planes = KP.precompute_planes(im, 1e-7)
+        ref = KP.precompute_planes_plain(im, 1e-7)
+        err = _precompute_err(planes, ref)
+        mv = KMV.matvec_planes(planes, im, pp)
+        checks = {
+            "K2 bits": torch.equal(planes, ref),
+            "K3 bits": torch.equal(mv, KMV.matvec_planes_plain(planes, im,
+                                                               pp)),
+            "K2 rows": torch.equal(planes[:, :, r0 - e0:r1 - e0],
+                                   whole[:, :, r0:r1]),
+            "K3 rows": torch.equal(mv[:, r0 - e0:r1 - e0], whole_mv[:, r0:r1]),
+        }
+        if not (err < 1e-4 and all(checks.values())):
+            fail(f"K2 / K3 on the {name} block [{r0}, {r1}): error {err}, "
+                 f"{checks}")
+        errs.append(err)
+    print(f"[mesh] K2 and K3 on row blocks of {BATCH}x{MH}x{MW} "
+          f"({', '.join(f'{n} [{a}, {b})' for n, a, b in blocks)}; 2 ghost "
+          f"rows on each interior edge): the plain versions' bits, the whole "
+          f"image's rows, K2 max error {max(errs):.1e} (bound 1e-4) ({label})")
+
+
+def _mesh_staged(label: str, imgs, pipe_1, ref) -> None:
+    batches = [imgs, np.ascontiguousarray(imgs[:, :, ::-1]),
+               np.ascontiguousarray(imgs[:, ::-1])]
+    meshes = split_stage_meshes(_slots(MESH_SLOTS), fractions=(2, 1, 1))
+    spipe = StagedPipeline(model="u2netp", k=16, meshes=meshes,
+                           device="cuda")
+    spipe.run(batches[0])  # warm-up
+    outs, ms = _timed(lambda: [[t.clone() for t in o]
+                               for o in spipe.run_stream(batches)])
+    refs = [ref] + [pipe_1.run(b) for b in batches[1:]]
+    _, ms_fused = _timed(lambda: [pipe_1.run(b) for b in batches])
+    held = []
+    for i, (b, o, r) in enumerate(zip(batches, outs, refs)):
+        x = torch.from_numpy(b).to("cuda")
+        held.append(f"batch {i}: " + _against_split_cnn(
+            f"staged batch {i}", type(r)(*o), x, b, pipe_1, r,
+            meshes[0].size))
+    print(f"[mesh] StagedPipeline {[m.size for m in meshes]} slots, 3 "
+          f"batches of {BATCH}x{H4K}x{W4K} (as is, flipped left-right, "
+          f"flipped up-down) streamed, in order; {'; '.join(held)}; "
+          f"{ms / 3:.3f} ms a batch, fused {ms_fused / 3:.3f} ({label})")
+
+
+def run_mesh(label: str) -> None:
+    """Phase 15: the sharded paths on slots of this one card."""
+    t_phase = time.perf_counter()
+    imgs = photo_batch(BATCH, H4K, W4K, seed=0)
+    x = torch.from_numpy(imgs).to("cuda")
+    pipe_1 = Pipeline(model="u2netp", k=16, device="cuda")
+    ref = pipe_1.run(x)
+    sha = {name: BENCH_K12._sha(t) for name, t in zip(ref._fields, ref)}
+    if sha != MAIN_PATH_SHA256:
+        fail(f"phase 15's unsharded reference changed: {sha}")
+    _mesh_pipeline(label, x, imgs, pipe_1, ref)
+    _mesh_refine(label)
+    _mesh_blocks(label)
+    _mesh_staged(label, imgs, pipe_1, ref)
+
+    t0 = time.perf_counter()
+    try:
+        line = GRAFT.dryrun_multichip(MESH_SLOTS, device="cuda")
+    except (AssertionError, RuntimeError) as e:
+        fail(f"dryrun_multichip({MESH_SLOTS}): {e}")
+    print(f"[mesh] {line}; {time.perf_counter() - t0:.1f} s ({label})")
+
+    b, hw, steps = TRAIN_DP
+    t0 = time.perf_counter()
+    try:
+        tr = GRAFT.check_train("cuda", b, hw, steps=steps)
+    except (AssertionError, RuntimeError) as e:
+        fail(f"data-parallel training step: {e}")
+    print(f"[mesh] shard_train_step, U2NETP {b}x3x{hw}x{hw} over 2 "
+          f"{tr['backend']} ranks on one card ({b // 2} a rank), {steps} "
+          f"steps: ms a step "
+          f"{', '.join(f'{t:.3f}' for t in tr['ms'])} (one rank on the "
+          f"whole batch {', '.join(f'{t:.3f}' for t in tr['ms_1'])}); loss "
+          f"{', '.join(f'{v:.6f}' for v in tr['loss'])} against "
+          f"{', '.join(f'{v:.6f}' for v in tr['loss_1'])} (relative gaps "
+          f"{', '.join(f'{v:.2e}' for v in tr['loss_gaps'])}; step 1 bound "
+          f"1e-4); after step 1 fuse conv max |diff| "
+          f"{tr['held_maxdiff']:.1e}, {tr['params_over']} of "
+          f"{tr['params_total']} parameters over 1e-4; "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start-up "
+          f"({label})")
+    print(f"[mesh] phase 15: {time.perf_counter() - t_phase:.1f} s ({label})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -2161,6 +2419,7 @@ def main() -> None:
     run_region_cleanup(label, frame)
     run_cli(label)
     run_train(label)
+    run_mesh(label)
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

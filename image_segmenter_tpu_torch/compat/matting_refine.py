@@ -23,6 +23,7 @@ import torch
 from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.ops import morphology as M
 from image_segmenter_tpu_torch.ops import resize as RZ
+from image_segmenter_tpu_torch.parallel.mesh import Mesh
 from image_segmenter_tpu_torch.solvers.matting import estimate_alpha_cf, \
     solve_alpha_cf
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
@@ -130,21 +131,32 @@ def refine_alpha_portrait_full_res(
     device="cuda",
 ) -> np.ndarray:
     """Full-resolution matting in place of the reference's lossy >1024
-    downsample: the unsharded float32 solve at the image's own size. The
-    JAX package can also shard the rows over a device mesh; that is not
-    ported yet (ROADMAP queue item 13), so a mesh raises."""
+    downsample: the float32 solve at the image's own size.
+
+    mesh: a (data, space) mesh (parallel/mesh.py) whose first data group's
+    space slots each solve a block of the image's rows, with ghost rows
+    exchanged and the sums added across the slots
+    (solvers/matting._solve_impl); other data groups would hold replicas.
+    The solve then runs on the slots' devices and `device` is not read.
+    Without a mesh this is the unsharded full-resolution solve on `device`
+    ("cuda" by default; it raises when CUDA is absent)."""
     _check_inputs(rgb, alpha_init)
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded full-resolution matting is not ported yet (ROADMAP "
-            "queue item 13); pass mesh=None")
-    dev = resolve_device(device)
+        if not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        mesh = mesh.group(0)
+        for d in mesh.devices.flat:
+            resolve_device(d)
+        dev = mesh.first
+    else:
+        dev = resolve_device(device)
     trimap = build_trimap_from_alpha_and_strokes(rgb, alpha_init, user_mask)
     img = true_div(torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
                    .to(torch.float32), 255.0)
     tri = torch.from_numpy(trimap.astype(np.float32)).to(dev)
     alpha, ok, _, _ = solve_alpha_cf(img[None], tri[None], max_iter=800,
-                                     rtol=1e-5)
+                                     rtol=1e-5, mesh=mesh)
     if not bool(ok[0]):
         return simple_alpha_refine(rgb, alpha_init, user_mask, device=dev)
     alpha_u8 = np.clip(alpha[0].cpu().numpy().astype(np.float64) * 255.0 + 0.5,

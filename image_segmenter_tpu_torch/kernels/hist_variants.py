@@ -83,9 +83,11 @@ def hist_variant(x: torch.Tensor, variant: str = "N3D") -> torch.Tensor:
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     scratch = _scratch_for(x.device, stream, b)
-    rc = lib.iseg_hist_variant(x.data_ptr(), n, b, STEPS[variant],
-                               blocks_per_row(n, b, sm_count(x.device)),
-                               scratch.data_ptr(), out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(x.device):
+        rc = lib.iseg_hist_variant(x.data_ptr(), n, b, STEPS[variant],
+                                   blocks_per_row(n, b, sm_count(x.device)),
+                                   scratch.data_ptr(), out.data_ptr(), stream)
     _build.check(rc, f"hist_variant {variant}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1

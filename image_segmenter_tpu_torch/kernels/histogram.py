@@ -74,9 +74,11 @@ def hist256(x: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     scratch = _scratch_for(x.device, stream, b)
-    rc = lib.iseg_hist256(x.data_ptr(), n, b,
-                          blocks_per_row(n, b, sm_count(x.device)),
-                          scratch.data_ptr(), out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(x.device):
+        rc = lib.iseg_hist256(x.data_ptr(), n, b,
+                              blocks_per_row(n, b, sm_count(x.device)),
+                              scratch.data_ptr(), out.data_ptr(), stream)
     _build.check(rc, "hist256")
     LAUNCHES += 1
     return out

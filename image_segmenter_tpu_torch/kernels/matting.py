@@ -127,8 +127,11 @@ def matvec_planes(p_pad: torch.Tensor,
     lib = _build.library()
     stream = torch.cuda.current_stream(p_pad.device).cuda_stream
     rows = run_rows(ho, wp, b, sm_count(p_pad.device))
-    rc = lib.iseg_matvec_recompute(p_pad.data_ptr(), static_planes.data_ptr(),
-                                   b, hp, wp, ho, rows, out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(p_pad.device):
+        rc = lib.iseg_matvec_recompute(p_pad.data_ptr(),
+                                       static_planes.data_ptr(), b, hp, wp,
+                                       ho, rows, out.data_ptr(), stream)
     _build.check(rc, "matvec_recompute")
     LAUNCHES += 1
     return out

@@ -108,8 +108,10 @@ def matvec_planes(planes: torch.Tensor, img: torch.Tensor,
     lib = _build.library()
     stream = torch.cuda.current_stream(p.device).cuda_stream
     rows = run_rows(h, w, b, sm_count(p.device))
-    rc = lib.iseg_matvec(planes.data_ptr(), img.data_ptr(), p.data_ptr(),
-                         b, h, w, rows, out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(p.device):
+        rc = lib.iseg_matvec(planes.data_ptr(), img.data_ptr(), p.data_ptr(),
+                             b, h, w, rows, out.data_ptr(), stream)
     _build.check(rc, "matvec")
     LAUNCHES += 1
     return out
@@ -231,9 +233,11 @@ def matvec_stack(stack: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(p)
     lib = _build.library()
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    rc = lib.iseg_matvec_stack(stack.data_ptr(), p.data_ptr(), b, h, w,
-                               stack.shape[2], stack.shape[3],
-                               out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(p.device):
+        rc = lib.iseg_matvec_stack(stack.data_ptr(), p.data_ptr(), b, h, w,
+                                   stack.shape[2], stack.shape[3],
+                                   out.data_ptr(), stream)
     _build.check(rc, "matvec_stack")
     STACK_LAUNCHES += 1
     return out

@@ -76,8 +76,10 @@ def precompute_planes(img: torch.Tensor, epsilon: float) -> torch.Tensor:
     lib = _build.library()
     stream = torch.cuda.current_stream(img.device).cuda_stream
     rows = run_rows(h, w, b, sm_count(img.device))
-    rc = lib.iseg_precompute(img.data_ptr(), b, h, w, float(epsilon), rows,
-                             out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(img.device):
+        rc = lib.iseg_precompute(img.data_ptr(), b, h, w, float(epsilon), rows,
+                                 out.data_ptr(), stream)
     _build.check(rc, "precompute")
     LAUNCHES += 1
     return out

@@ -87,10 +87,12 @@ def quantize_map(rgb_u8: torch.Tensor, alpha: torch.Tensor,
     out = torch.empty_like(rgb_u8)
     lib = _build.library()
     stream = torch.cuda.current_stream(rgb_u8.device).cuda_stream
-    rc = lib.iseg_quantize(rgb_u8.data_ptr(), alpha.data_ptr(),
-                           centers_f32.data_ptr(), brightness_thr.data_ptr(),
-                           b, h * w, k_max, int(k_real), out.data_ptr(),
-                           stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(rgb_u8.device):
+        rc = lib.iseg_quantize(rgb_u8.data_ptr(), alpha.data_ptr(),
+                               centers_f32.data_ptr(),
+                               brightness_thr.data_ptr(), b, h * w, k_max,
+                               int(k_real), out.data_ptr(), stream)
     _build.check(rc, "quantize")
     LAUNCHES += 1
     return out

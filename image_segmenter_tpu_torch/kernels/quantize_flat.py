@@ -99,11 +99,13 @@ def quantize_planes(planes: torch.Tensor, alpha: torch.Tensor,
     lib = _build.library()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     blocks = grid_blocks(n, b, sm_count(planes.device))
-    rc = lib.iseg_quantize_flat(planes.data_ptr(), alpha.data_ptr(),
-                                centers_f32.data_ptr(),
-                                brightness_thr.data_ptr(), b, n,
-                                centers_f32.shape[1], int(k_real), blocks,
-                                out.data_ptr(), stream)
+    # the C entry launches on the current device, which must own the stream
+    with torch.cuda.device(planes.device):
+        rc = lib.iseg_quantize_flat(planes.data_ptr(), alpha.data_ptr(),
+                                    centers_f32.data_ptr(),
+                                    brightness_thr.data_ptr(), b, n,
+                                    centers_f32.shape[1], int(k_real), blocks,
+                                    out.data_ptr(), stream)
     _build.check(rc, "quantize_flat")
     LAUNCHES += 1
     return out

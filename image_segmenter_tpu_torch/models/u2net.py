@@ -15,10 +15,15 @@ outputs are float32 before their upsample.
 
 `train=True` (the `train` argument of the Flax modules; `nn.Module.training`
 does not switch it) normalises with the batch's statistics as Flax's
-BatchNorm does and updates the running buffers (pipeline/train.py).
+BatchNorm does and updates the running buffers (pipeline/train.py);
+within `batch_norm_sum` (the data-parallel step) the statistics are the
+whole batch's, summed over the processes.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn as nn
@@ -62,6 +67,24 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
 
 
+# A differentiable sum over the processes of a data-parallel training step
+# (pipeline/train.loss_and_grads sets it for a shard's forward): the
+# training BatchNorms then normalise with the whole batch's statistics.
+_BN_SUM = contextvars.ContextVar("bn_sum", default=None)
+
+
+@contextlib.contextmanager
+def batch_norm_sum(fn):
+    """Within the block (in this thread or task), every training BatchNorm
+    sums its per-channel sum(y), sum(y * y) and count with `fn` before it
+    forms the mean and Flax's biased variance E[y^2] - E[y]^2."""
+    token = _BN_SUM.set(fn)
+    try:
+        yield
+    finally:
+        _BN_SUM.reset(token)
+
+
 class REBNCONV(nn.Module):
     """conv3x3(dilation d) + BN + ReLU — the U^2-Net building block."""
 
@@ -84,8 +107,22 @@ class REBNCONV(nn.Module):
             # biased variance E[y^2] - E[y]^2 clipped at 0, and the running
             # buffers moved by momentum 0.9 with that biased variance
             # (BatchNorm2d would move them with the unbiased one)
-            mean = y.mean((0, 2, 3))
-            var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean, min=0.0)
+            bn_sum = _BN_SUM.get()
+            if bn_sum is None:
+                mean = y.mean((0, 2, 3))
+                var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
+                                  min=0.0)
+            else:
+                # the statistics of the batch over every process: sum(y),
+                # sum(y * y) and the count summed, then the same moments
+                c = y.shape[1]
+                count = torch.full((1,), y.numel() // c, dtype=y.dtype,
+                                   device=y.device)
+                sums = bn_sum(torch.cat([y.sum((0, 2, 3)),
+                                          (y * y).sum((0, 2, 3)), count]))
+                mean = sums[:c] / sums[2 * c]
+                var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                                  min=0.0)
             with torch.no_grad():
                 bn.running_mean.copy_(0.9 * bn.running_mean
                                       + (1.0 - 0.9) * mean)

@@ -1,8 +1,11 @@
-"""ctypes bindings for the host C++ geometry engine (native/geometry.cpp).
+"""ctypes bindings for the host C++ geometry engine (ops/csrc/geometry.cpp).
 
-Counterpart of image_segmenter_tpu/ops/native.py. The same unchanged C++
-source is built with g++ at first use into the port's own directory
-(`ops/_native_build/`, not the JAX package's `native/build/`). The library
+Counterpart of image_segmenter_tpu/ops/native.py. The port ships its own
+copy of the repository's native/geometry.cpp, byte for byte, as package
+data (`ops/csrc/geometry.cpp`), so an installed port builds without the
+repository around it. It is built with g++ at first use into the port's
+own directory (`ops/_native_build/`, not the JAX package's
+`native/build/`). The library
 is written under a temporary name and moved into place with os.replace, so
 processes that build at the same time never load a half-written file.
 
@@ -22,7 +25,7 @@ from typing import List
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "native", "geometry.cpp")
+_SRC = os.path.join(_PKG, "ops", "csrc", "geometry.cpp")
 _BUILD_DIR = os.path.join(_PKG, "ops", "_native_build")
 _SO = os.path.join(_BUILD_DIR, "libgeometry.so")
 

@@ -12,14 +12,24 @@ Counterpart of image_segmenter_tpu/pipeline/segment.py (BASELINE config
    the fused nearest-palette map (quantize).
 
 Eager PyTorch, one batch at a time: the JAX package's per-image `vmap`s
-are a batch axis written out, and its data-parallel sharding is not
-ported yet. Four hand-written CUDA kernels run on a CUDA device: K1
-histogram (trimap quantiles, Otsu), K2 precompute and K3 matvec
-(matting), K4 quantize (the palette map).
+are a batch axis written out. Four hand-written CUDA kernels run on a
+CUDA device: K1 histogram (trimap quantiles, Otsu), K2 precompute and K3
+matvec (matting), K4 quantize (the palette map).
+
+`Pipeline(sharding=batch_sharding(mesh))` spreads a batch over a (data,
+space) mesh of device slots (parallel/mesh.py), as the JAX package's
+sharded run does: the batch splits over the data axis; in each data
+group the CNN, the resizes, the trimap, Otsu, the morphology and the
+k-means fit and map run whole on the group's first slot (the JAX
+package pins those to batch-only sharding), and the matting solve (K2
+once, K3 every iteration) runs with its rows split over the group's
+space slots. The groups run one after another from one controller; the
+outputs are gathered on the mesh's first slot.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -31,6 +41,8 @@ from image_segmenter_tpu_torch.models import registry as REG
 from image_segmenter_tpu_torch.ops import histogram as HG
 from image_segmenter_tpu_torch.ops import morphology as M
 from image_segmenter_tpu_torch.ops import resize as RZ
+from image_segmenter_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, \
+    same_device, split_bounds, to_slot
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.solvers.matting import solve_alpha_cf
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
@@ -182,7 +194,10 @@ class StageFns(NamedTuple):
 
 
 def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
-                   device=None) -> StageFns:
+                   device=None, solve_mesh=None) -> StageFns:
+    """The stages on `device` (the session's by default). solve_mesh, a
+    (1, S) (data, space) mesh whose first slot is `device`, splits the
+    matting solve's rows over its S slots."""
     spec = session.spec
     dev = session.device if device is None else resolve_device(device)
     nh, nw = spec.size
@@ -221,7 +236,8 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
         alpha_m, _, _, _ = solve_alpha_cf(
             true_div(rgb_s.to(torch.float32), 255.0), trimap,
             max_iter=cg_iters, rtol=1e-4,
-            x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True)
+            x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True,
+            mesh=solve_mesh)
         alpha_m_u8 = torch.clamp(torch.floor(alpha_m * 255.0 + 0.5), 0, 255) \
             .to(torch.uint8)
         if (sh, sw) != (h, w):
@@ -239,31 +255,91 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
     return StageFns(cnn_stage, matting_stage, quantize_stage)
 
 
+def network_on(module: torch.nn.Module, dev: torch.device,
+               copies: dict) -> torch.nn.Module:
+    """`module` on `dev`: itself where it lives there, else a copy kept in
+    `copies` (made once for these weights)."""
+    if same_device(next(module.parameters()).device, dev):
+        return module
+    key = (id(module), str(dev))
+    if key not in copies:
+        copies[key] = copy.deepcopy(module).to(dev)
+    return copies[key]
+
+
 class Pipeline:
-    """End-to-end pipeline for a fixed model id on one device.
+    """End-to-end pipeline for a fixed model id, on one device or sharded
+    over a mesh.
 
     `run(imgs)` takes a (B, H, W, 3) uint8 batch (numpy or tensor) and
-    returns a PipelineOutput of tensors on `device`. device="cuda" raises
-    when CUDA is absent; it never falls back to the CPU.
+    returns a PipelineOutput of tensors on `device`. device defaults to
+    "cuda" and raises when CUDA is absent; it never falls back to the CPU.
+    With `sharding` (`batch_sharding(mesh)`; see the module docstring) the
+    run lives on the mesh's slots, `device` is not read, and the outputs
+    are on the mesh's first slot.
     """
 
     def __init__(self, model: str = "u2netp", k: int = 16,
                  matting_dim: Optional[int] = None, cg_iters: int = 200,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", sharding=None):
+        self.sharding = sharding
+        if sharding is None:
+            self.device = resolve_device(device)
+        else:
+            mesh = sharding.mesh
+            if mesh.axis_names != (DATA_AXIS, SPACE_AXIS):
+                raise ValueError("Pipeline: sharding needs a (data, space) "
+                                 f"mesh, got axes {mesh.axis_names}")
+            for d in mesh.devices.flat:
+                resolve_device(d)
+            self.device = mesh.first
         self.session = REG.new_session(model, device=self.device)
         self.k = k
         self.matting_dim = matting_dim or DEFAULTS.matting_max_dim
         self.cg_iters = cg_iters
         self.stages = make_stage_fns(self.session, self.k, self.matting_dim,
                                      self.cg_iters, device=self.device)
+        # per data group: its first slot and its stages, the solve split
+        # over the group's space slots
+        self._groups = [] if sharding is None else [
+            (g.first, make_stage_fns(self.session, self.k, self.matting_dim,
+                                     self.cg_iters, device=g.first,
+                                     solve_mesh=g))
+            for g in (mesh.group(i) for i in range(mesh.shape[0]))]
+        self._copies = {}
 
     def run(self, imgs_u8) -> PipelineOutput:
-        x = torch.as_tensor(imgs_u8).to(self.device)
+        return self._run(imgs_u8, None)
+
+    def run_from_mask(self, imgs_u8, mask_small) -> PipelineOutput:
+        """The matting and quantize stages from a given CNN mask (B, nh,
+        nw) uint8, as `run` would take them after its CNN stage."""
+        return self._run(imgs_u8, torch.as_tensor(mask_small))
+
+    def _run(self, imgs_u8, mask_small) -> PipelineOutput:
+        x = torch.as_tensor(imgs_u8)
         if x.dim() != 4 or x.shape[-1] != 3 or x.dtype != torch.uint8:
             raise ValueError("Pipeline.run takes a (B, H, W, 3) uint8 batch, "
                              f"got {tuple(x.shape)} {x.dtype}")
-        mask_small = self.stages.cnn(self.session.module, x)
-        sharp, alpha = self.stages.matting(x, mask_small)
-        rgba, palettes = self.stages.quantize(x, sharp)
-        return PipelineOutput(rgba, alpha, palettes)
+        groups = [(self.device, self.stages, 0, x.shape[0])] \
+            if self.sharding is None else [
+                (dev, st, b0, b1) for (dev, st), (b0, b1) in zip(
+                    self._groups,
+                    split_bounds(x.shape[0], len(self._groups)))
+                if b1 > b0]  # groups past the batch's last image stay idle
+        outs = []
+        for dev, st, b0, b1 in groups:
+            xi = to_slot(x[b0:b1], dev)
+            if mask_small is None:
+                mi = st.cnn(network_on(self.session.module, dev,
+                                       self._copies), xi)
+            else:
+                mi = to_slot(mask_small[b0:b1], dev)
+            sharp, alpha = st.matting(xi, mi)
+            rgba, palettes = st.quantize(xi, sharp)
+            outs.append((rgba, alpha, palettes))
+        if len(outs) == 1:
+            return PipelineOutput(*outs[0])
+        return PipelineOutput(*(torch.cat([to_slot(o[i], self.device)
+                                           for o in outs])
+                                for i in range(3)))

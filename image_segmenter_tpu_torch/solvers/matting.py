@@ -24,6 +24,12 @@ for the whole batch and keeps the new state only for images still active,
 so each image stops at the iteration count it has in JAX. The host reads
 the active mask once per iteration.
 
+`mesh=` splits a solve's rows over the space slots of a (1, S) mesh
+(parallel/mesh.py), where the JAX package gets the same from GSPMD on
+row-sharded inputs: each slot runs the precompute (K2) and every matvec
+(K3) on its row block with ghost rows, the sums add float64 partials, and
+one stop decision serves every slot (`_solve_impl`).
+
 The JAX package sends only solves of at most 2.5 MP to its fused matvec,
 because the TPU kernel's overlap-tiled operand stack cost extra device
 memory. The CUDA kernel reads K2's planes in place and needs no extra
@@ -49,6 +55,8 @@ from image_segmenter_tpu_torch.kernels.matvec import laplacian_matvec_plain, \
 from image_segmenter_tpu_torch.kernels.precompute import precompute_planes, \
     window_factors
 from image_segmenter_tpu_torch.ops.resize import resize_linear_aa
+from image_segmenter_tpu_torch.parallel.mesh import SPACE_AXIS, split_bounds, \
+    take, to_slot
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
 
 _LAMBDA = 100.0  # pymatting's known-constraint weight
@@ -67,21 +75,74 @@ class _Precomp(NamedTuple):
                             # that path ran; K3 reads it in place
 
 
-def _bsum(x: torch.Tensor) -> torch.Tensor:
-    """Per-image sum over (H, W): (B, H, W) -> (B,) in x's type.
-
-    A float32 x is accumulated in float64 and rounded once: a float32 sum
-    rounds by its order of additions, which differs between the CPU and
-    the card, and the CG's step sizes and stopping test read these sums
-    every iteration. Rounded from float64 they are the same on both
-    devices (up to a tie at float64 precision), so the solve is too. A
-    float64 x has no wider type to go to: the float64 rungs agree between
-    devices to rounding, not to bits."""
-    return x.sum(dim=(1, 2), dtype=torch.float64).to(x.dtype)
-
-
 def _bcast(x: torch.Tensor) -> torch.Tensor:
     return x[:, None, None]
+
+
+class _Rows:
+    """A per-image field (B, H, W) of a solve, split by rows over its
+    slots: one block a slot, on the slot's device. Arithmetic maps over the
+    blocks; a (B,) tensor of per-image values (held on the first slot)
+    multiplies each block on its own device. An unsplit solve has one
+    block, and every operation is the one it would run on the tensor."""
+
+    __slots__ = ("blocks",)
+
+    def __init__(self, blocks):
+        self.blocks = list(blocks)
+
+    def _zip(self, other, f):
+        if isinstance(other, _Rows):
+            return _Rows(f(a, b) for a, b in zip(self.blocks, other.blocks))
+        return _Rows(f(a, other) for a in self.blocks)
+
+    def __add__(self, other):
+        return self._zip(other, lambda a, b: a + b)
+
+    def __sub__(self, other):
+        return self._zip(other, lambda a, b: a - b)
+
+    def __mul__(self, other):
+        return self._zip(other, lambda a, b: a * b)
+
+    def __rmul__(self, s):
+        """s * field for a float or a (B,) tensor of per-image values."""
+        if isinstance(s, torch.Tensor):
+            return _Rows(_bcast(to_slot(s, a.device)) * a for a in self.blocks)
+        return _Rows(s * a for a in self.blocks)
+
+    def gather(self) -> torch.Tensor:
+        """The whole (B, H, W) field on the first slot."""
+        if len(self.blocks) == 1:
+            return self.blocks[0]
+        dev = self.blocks[0].device
+        return torch.cat([to_slot(a, dev) for a in self.blocks], dim=1)
+
+
+def _where(mask: torch.Tensor, a: _Rows, b: _Rows) -> _Rows:
+    """Per image: a where the (B,) mask holds, else b."""
+    return _Rows(torch.where(_bcast(to_slot(mask, x.device)), x, y)
+                 for x, y in zip(a.blocks, b.blocks))
+
+
+def _bsum(x: _Rows) -> torch.Tensor:
+    """Per-image sum over (H, W): (B,) in x's type, on the first slot.
+
+    A float32 x is accumulated in float64 (each slot's partial, then the
+    partials added on the first slot) and rounded once: a float32 sum
+    rounds by its order of additions, which differs between the CPU and
+    the card and between one slot and several, and the CG's step sizes and
+    stopping test read these sums every iteration. Rounded from float64
+    they are the same on both devices and at any split (up to a tie at
+    float64 precision), so the solve is too. A float64 x has no wider type
+    to go to: the float64 rungs agree between devices to rounding, not to
+    bits."""
+    first = x.blocks[0].device
+    total = None
+    for a in x.blocks:
+        part = to_slot(a.sum(dim=(1, 2), dtype=torch.float64), first)
+        total = part if total is None else total + part
+    return total.to(x.blocks[0].dtype)
 
 
 def _precompute(img_planes: torch.Tensor, epsilon, radius: int = 1,
@@ -109,38 +170,101 @@ def _matvec(pre: _Precomp, p: torch.Tensor, radius: int = 1) -> torch.Tensor:
                                   radius, pre.packed)
 
 
+class _Slab(NamedTuple):
+    """What one slot of a solve holds: the precompute of its row block
+    extended by 2 * radius image rows on each interior edge, and where
+    its own rows sit in that extension."""
+    dev: torch.device
+    rows: tuple          # (first, past-last) own rows in the image
+    ext: tuple           # (first, past-last) rows of the extension
+    pre: _Precomp
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """The own rows of an extension-sized (B, ..., H_ext, W) tensor."""
+        off = self.rows[0] - self.ext[0]
+        return t.narrow(t.dim() - 2, off, self.rows[1] - self.rows[0])
+
+
+def _space_slots(mesh) -> list:
+    """The space slots of a one-group (1, S) mesh, in row order."""
+    if mesh.shape[0] != 1 or mesh.axis_names[1] != SPACE_AXIS:
+        raise ValueError(f"the solve splits rows over the space axis of one "
+                         f"data group: pass a (1, S) (data, space) mesh such "
+                         f"as mesh.group(i), got {mesh}")
+    return list(mesh.devices[0])
+
+
 def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
                 radius: int, lam, rtol: float, max_iter: int,
-                x0: Optional[torch.Tensor], half_stats: bool):
+                x0: Optional[torch.Tensor], half_stats: bool, mesh=None):
     """Shared CG body; returns (alpha, ok, it, res, rankdef_frac), where
     rankdef_frac (B,) is the unknown-band exact-rank-deficiency fraction
-    from the same precompute the solve uses."""
+    from the same precompute the solve uses.
+
+    With a mesh the image rows split over its space slots (torch.
+    tensor_split sizes). Each slot precomputes its block extended by
+    2 * radius image rows on each interior edge: a window centred up to
+    `radius` rows past the block reads image rows `radius` further out.
+    At the two chain ends the block starts at the image border, whose
+    windows count their pixels through the zero-padded ones mask, so no
+    ghost rows go there (zero rows would change those counts). Every
+    iteration copies the 2 * radius rows of the matvec's operand next to
+    each interior edge from the neighbours, applies L on the extension
+    and keeps the own rows. The per-image sums add float64 partials on
+    the first slot (`_bsum`), and the loop's stop is one decision made
+    there. Outputs are on the first slot; they are the unsplit solve's
+    bits on the test cases, since every pixel's arithmetic is the same
+    and the sums round once from float64."""
     dt = torch.float64 if image01.dtype == torch.float64 else torch.float32
-    img = image01.to(dt).permute(0, 3, 1, 2).contiguous()
+    img = image01.to(dt).permute(0, 3, 1, 2)
     trimap = trimap.to(dt)
-    pre = _precompute(img, epsilon, radius, half_stats)
-    is_known = ((trimap < 0.1) | (trimap > 0.9)).to(dt)
-    known_fg = (trimap > 0.9).to(dt)
+    h = img.shape[2]
+    devs = [image01.device] if mesh is None else _space_slots(mesh)
+    if len(devs) > h:
+        raise ValueError(f"{h} rows cannot split over {len(devs)} slots")
+    bounds = split_bounds(h, len(devs))
+    halo = 2 * radius
+    slabs = []
+    for dev, (r0, r1) in zip(devs, bounds):
+        e0, e1 = max(0, r0 - halo), min(h, r1 + halo)
+        blk = to_slot(img[:, :, e0:e1], dev).contiguous()
+        slabs.append(_Slab(dev, (r0, r1), (e0, e1),
+                           _precompute(blk, epsilon, radius, half_stats)))
+
+    def rows(t):  # a (B, H, W) tensor split over the slots
+        return _Rows(to_slot(t[:, r0:r1], sl.dev)
+                     for sl, (r0, r1) in zip(slabs, bounds))
+
+    tri = rows(trimap)
+    is_known = _Rows(((t < 0.1) | (t > 0.9)).to(dt) for t in tri.blocks)
+    known_fg = _Rows((t > 0.9).to(dt) for t in tri.blocks)
+
+    def matvec(q):
+        return _Rows(sl.own(_matvec(sl.pre, take(q.blocks, bounds, *sl.ext,
+                                                  sl.dev, dim=1), radius))
+                     for sl in slabs)
 
     def amv(p):
-        return _matvec(pre, p, radius) + lam * is_known * p
+        return matvec(p) + lam * is_known * p
 
     b = lam * known_fg
     # diag(L) > 0 mathematically; f32 can round tiny entries negative,
     # which would flip the Jacobi preconditioner's sign — clamp.
-    m_inv = 1.0 / torch.clamp_min(pre.diag + lam * is_known, 1e-6)
+    m_inv = _Rows(1.0 / torch.clamp_min(sl.own(sl.pre.diag) + lam * k, 1e-6)
+                  for sl, k in zip(slabs, is_known.blocks))
 
     if x0 is None:
-        x0 = trimap.clone()
+        x0 = _Rows(t.clone() for t in tri.blocks)
     else:
-        x0 = torch.where(is_known > 0, trimap,
-                         torch.clamp(x0.to(dt), 0.0, 1.0))
+        x0 = _Rows(torch.where(k > 0, t, torch.clamp(x.to(dt), 0.0, 1.0))
+                   for k, t, x in zip(is_known.blocks, tri.blocks,
+                                      rows(x0).blocks))
     r0 = b - amv(x0)
     z0 = m_inv * r0
     rz0 = _bsum(r0 * z0)
     bnorm = torch.sqrt(_bsum(b * b)) + 1e-30
     nb = image01.shape[0]
-    dev = image01.device
+    dev = devs[0]
 
     def cond(r, it):
         res = torch.sqrt(_bsum(r * r)) / bnorm
@@ -152,23 +276,21 @@ def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
         # One matvec per iteration. A curvature at the f32 noise floor
         # (`broke`) defers an exact-residual restart to the next
         # iteration, whose matvec is applied to x (`pending`) instead of p.
-        y = amv(torch.where(_bcast(pending), x, p))
+        y = amv(_where(pending, x, p))
         r_r = b - y                                     # restart lane
         pap = _bsum(p * y)
         broke = ~(pap > 1e-10 * _bsum(p * p))
         step = rz / torch.where(broke, 1.0, pap)
-        x_a = x + _bcast(step) * p                      # advance lane
-        r_a = r - _bcast(step) * y
+        x_a = x + step * p                              # advance lane
+        r_a = r - step * y
         take_restart = pending
         take_advance = (~pending) & (~broke)
-        x2 = torch.where(_bcast(take_advance), x_a, x)
-        r2 = torch.where(_bcast(take_restart), r_r,
-                         torch.where(_bcast(take_advance), r_a, r))
+        x2 = _where(take_advance, x_a, x)
+        r2 = _where(take_restart, r_r, _where(take_advance, r_a, r))
         z = m_inv * r2
         rz2 = _bsum(r2 * z)
         beta = torch.where(take_advance, rz2 / torch.clamp_min(rz, 1e-30), 0.0)
-        p2 = torch.where(_bcast(take_restart | take_advance),
-                         z + _bcast(beta) * p, p)
+        p2 = _where(take_restart | take_advance, z + beta * p, p)
         rz3 = torch.where(take_restart | take_advance, rz2, rz)
         return x2, r2, p2, rz3, broke & ~pending
 
@@ -176,22 +298,26 @@ def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
     it = torch.zeros(nb, dtype=torch.int32, device=dev)
     pending = torch.zeros(nb, dtype=torch.bool, device=dev)
     active = cond(r, it)
+    # one stop decision for every slot, from the summed residual
     while bool(active.any()):
         x2, r2, p2, rz2, pending2 = body(x, r, p, rz, pending)
-        a3 = _bcast(active)
-        x = torch.where(a3, x2, x)
-        r = torch.where(a3, r2, r)
-        p = torch.where(a3, p2, p)
+        x = _where(active, x2, x)
+        r = _where(active, r2, r)
+        p = _where(active, p2, p)
         rz = torch.where(active, rz2, rz)
         pending = torch.where(active, pending2, pending)
         it = it + active.to(torch.int32)
         active = cond(r, it)
 
     res = torch.sqrt(_bsum(r * r)) / bnorm
-    alpha = torch.clamp(x, 0.0, 1.0)
-    unk = (trimap > 0.1) & (trimap < 0.9)
-    frac = (pre.rankdef & unk).sum(dim=(1, 2)) \
-        / torch.clamp_min(unk.sum(dim=(1, 2)), 1)
+    alpha = torch.clamp(x.gather(), 0.0, 1.0)
+    n_def = n_unk = None
+    for sl, t in zip(slabs, tri.blocks):
+        unk = (t > 0.1) & (t < 0.9)
+        d = to_slot((sl.own(sl.pre.rankdef) & unk).sum(dim=(1, 2)), dev)
+        u = to_slot(unk.sum(dim=(1, 2)), dev)
+        n_def, n_unk = (d, u) if n_def is None else (n_def + d, n_unk + u)
+    frac = n_def / torch.clamp_min(n_unk, 1)
     return alpha, res <= rtol, it, res, frac
 
 
@@ -199,7 +325,7 @@ def solve_alpha_cf(image01: torch.Tensor, trimap: torch.Tensor,
                    epsilon=1e-7, radius: int = 1, lam=_LAMBDA,
                    rtol: float = 1e-5, max_iter: int = 400,
                    x0: Optional[torch.Tensor] = None,
-                   half_stats: bool = False):
+                   half_stats: bool = False, mesh=None):
     """Solve (L + lam*C) alpha = lam*known_fg per image, alpha in [0, 1].
 
     image01 (B, H, W, 3) float32 or float64 in [0, 1] (the solve runs in
@@ -211,21 +337,27 @@ def solve_alpha_cf(image01: torch.Tensor, trimap: torch.Tensor,
     as its six LDL factors (and, at radius 1 in float32, takes kernels K2
     and K3).
 
+    mesh: a (1, S) (data, space) mesh (parallel/mesh.py; `mesh.group(i)`
+    of a larger one) whose S slots each solve a block of the rows, with
+    ghost rows exchanged every iteration (see `_solve_impl`); the outputs
+    are on its first slot. None solves on the input's device.
+
     Returns (alpha (B, H, W), converged (B,) bool, iterations (B,) int32,
     rel_residual (B,)).
     """
     return _solve_impl(image01, trimap, epsilon, radius, lam, rtol, max_iter,
-                       x0, half_stats)[:4]
+                       x0, half_stats, mesh)[:4]
 
 
 def solve_alpha_cf_with_conditioning(image01, trimap, epsilon=1e-7,
                                      radius: int = 1, lam=_LAMBDA,
                                      rtol: float = 1e-5, max_iter: int = 400,
-                                     x0=None, half_stats: bool = False):
+                                     x0=None, half_stats: bool = False,
+                                     mesh=None):
     """`solve_alpha_cf` plus the unknown-band rank-deficiency fraction
     (B,) as a fifth output, from the solve's own precompute."""
     return _solve_impl(image01, trimap, epsilon, radius, lam, rtol, max_iter,
-                       x0, half_stats)
+                       x0, half_stats, mesh)
 
 
 _PYRAMID_MIN_DIM = 400  # coarsest level's max dimension stays >= this / 2
