@@ -117,8 +117,19 @@ Phases, each raising (and exiting non-zero) on failure:
    against the whole image's rows; StagedPipeline (2, 1, 1) streaming
    three distinct 4 x 2160 x 3840 batches, in order, under the dry run's
    contract against the fused runs; graft_entry.dryrun_multichip(4); and
-   the data-parallel training step over two gloo ranks at U^2-Netp's
-   320 x 320, batch 8, 3 steps, against one rank.
+   the training step over two gloo ranks at U^2-Netp's 320 x 320, batch
+   8, 3 steps, with whole rows (a slot a rank) and with each rank's rows
+   split over two slots, against one rank.
+16. the training step's rows split over the space axis:
+   shard_train_step on U^2-Netp at 320 x 320, batch 8, over (1, 2),
+   (1, 4) and (2, 2) slots of this card, 3 steps each, every step held
+   to the one-slot step from the same state (loss 1e-4 relative; after
+   step 1 the fuse conv 1e-4 and the statistics 1e-3; every parameter
+   moved), with ms a step, device operations and busy share of one
+   profiled step and the peak memory; the full U^2-Net, batch 2, one
+   step over (1, 2); on a host with two (four) cards (1, 2) ((1, 4)) a
+   card a slot beside the one card's peak (else "not measured"); no port
+   kernel launched.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2363,23 +2374,177 @@ def run_mesh(label: str) -> None:
     b, hw, steps = TRAIN_DP
     t0 = time.perf_counter()
     try:
-        tr = GRAFT.check_train("cuda", b, hw, steps=steps)
+        reports = GRAFT.check_train("cuda", b, hw, steps=steps)
     except (AssertionError, RuntimeError) as e:
-        fail(f"data-parallel training step: {e}")
-    print(f"[mesh] shard_train_step, U2NETP {b}x3x{hw}x{hw} over 2 "
-          f"{tr['backend']} ranks on one card ({b // 2} a rank), {steps} "
-          f"steps: ms a step "
-          f"{', '.join(f'{t:.3f}' for t in tr['ms'])} (one rank on the "
-          f"whole batch {', '.join(f'{t:.3f}' for t in tr['ms_1'])}); loss "
-          f"{', '.join(f'{v:.6f}' for v in tr['loss'])} against "
-          f"{', '.join(f'{v:.6f}' for v in tr['loss_1'])} (relative gaps "
-          f"{', '.join(f'{v:.2e}' for v in tr['loss_gaps'])}; step 1 bound "
-          f"1e-4); after step 1 fuse conv max |diff| "
-          f"{tr['held_maxdiff']:.1e}, {tr['params_over']} of "
-          f"{tr['params_total']} parameters over 1e-4; "
-          f"{time.perf_counter() - t0:.1f} s with the ranks' start-up "
-          f"({label})")
+        fail(f"sharded training step over two ranks: {e}")
+    for space, tr in reports.items():
+        rows = "whole rows" if space == 1 else f"its rows over {space} slots"
+        print(f"[mesh] shard_train_step, U2NETP {b}x3x{hw}x{hw} over 2 "
+              f"{tr['backend']} ranks on {', '.join(tr['slots'])} ({b // 2} "
+              f"a rank, {rows}), {steps} steps: ms a step "
+              f"{', '.join(f'{t:.3f}' for t in tr['ms'])} (one rank on the "
+              f"whole batch {', '.join(f'{t:.3f}' for t in tr['ms_1'])}); "
+              f"loss {', '.join(f'{v:.6f}' for v in tr['loss'])} against "
+              f"{', '.join(f'{v:.6f}' for v in tr['loss_1'])} (relative "
+              f"gaps {', '.join(f'{v:.2e}' for v in tr['loss_gaps'])}; step "
+              f"1 bound 1e-4); after step 1 fuse conv max |diff| "
+              f"{tr['held_maxdiff']:.1e}, {tr['params_over']} of "
+              f"{tr['params_total']} parameters over 1e-4 ({label})")
+    print(f"[mesh] both layouts: {time.perf_counter() - t0:.1f} s with the "
+          f"ranks' start-up ({label})")
     print(f"[mesh] phase 15: {time.perf_counter() - t_phase:.1f} s ({label})")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the training step's rows split over the space axis
+# ---------------------------------------------------------------------------
+
+SPLIT_MESHES = ((1, 2), (1, 4), (2, 2))  # slots of this card
+SPLIT_STEPS = 3
+SPLIT_FULL = (2, 320, 320)    # the full U^2-Net: batch, input size; (1, 2)
+
+
+def _peaks(devices) -> str:
+    return ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.3f} "
+                     "GiB" for d in devices)
+
+
+def _reset_peaks(devices) -> None:
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _split_run(what: str, step, sharded, state0, imgs, masks, steps: int,
+               slots) -> dict:
+    """`steps` steps of `sharded` from `state0`, each held against the
+    one-slot step from the same state: the loss within 1e-4 relative;
+    after step 1 `GRAFT.HELD_PARAMS` within 1e-4 and the statistics within
+    1e-3; every parameter moved over the run. The last step also reads
+    the peak memory of each slot's device; then one more sharded step is
+    profiled for its device operations and busy time. Returns the walls
+    and readings; fails on a broken bound."""
+    devices = sorted(set(slots), key=str)
+    state, walls, gaps, first = state0, [], [], None
+    for i in range(steps):
+        if i == steps - 1:
+            _reset_peaks(devices)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, loss = sharded(state, imgs, masks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == steps - 1:
+            peaks = _peaks(devices)
+        ref, loss_1 = step(state, imgs, masks)
+        gaps.append(abs(float(loss) - float(loss_1)) / abs(float(loss_1)))
+        if not np.isfinite(float(loss)) or gaps[-1] > 1e-4:
+            fail(f"{what}: step {i + 1}'s loss {float(loss)} against "
+                 f"{float(loss_1)} one slot (relative {gaps[-1]:.2e}, bound "
+                 "1e-4)")
+        if i == 0:
+            held = max(float((new.params[k] - ref.params[k]).abs().max())
+                       for k in GRAFT.HELD_PARAMS)
+            stats = max(float((v - ref.batch_stats[k]).abs().max())
+                        for k, v in new.batch_stats.items())
+            if held > 1e-4 or stats > 1e-3:
+                fail(f"{what}: after step 1 {GRAFT.HELD_PARAMS} differ by "
+                     f"{held:.2e} (bound 1e-4), the statistics by "
+                     f"{stats:.2e} (bound 1e-3)")
+            first = (held, stats)
+        state = new
+    moved = min(float((v - state0.params[k]).abs().max())
+                for k, v in state.params.items())
+    if not moved > 0:
+        fail(f"{what}: a parameter did not move in {steps} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = PROF.capture_device_trace(lambda: sharded(state, imgs, masks),
+                                          tmp)
+    if not trace:
+        fail(f"{what}: capture_device_trace saw no device operation")
+    warm = walls[1:] or walls
+    return {"ms": statistics.median(warm), "walls": walls, "gaps": gaps,
+            "held": first[0], "stats": first[1], "peaks": peaks,
+            "busy_ms": sum(t for _, t, _ in trace) / 1e3,
+            "ops": sum(c for _, _, c in trace)}
+
+
+def _split_line(r: dict) -> str:
+    return (f"{r['ms']:.3f} ms a step (median of the warm steps; "
+            f"{', '.join(f'{t:.3f}' for t in r['walls'])}), loss gaps "
+            f"{', '.join(f'{g:.2e}' for g in r['gaps'])} (bound 1e-4), after "
+            f"step 1 fuse conv max |diff| {r['held']:.1e} (bound 1e-4), "
+            f"statistics {r['stats']:.1e} (bound 1e-3); one profiled step: "
+            f"{r['ops']} device operations, busy {r['busy_ms']:.3f} ms, busy "
+            f"share {r['busy_ms'] / r['ms']:.3f}; peak {r['peaks']}")
+
+
+def run_row_split(label: str) -> None:
+    """Phase 16: `shard_train_step` with image rows split over the space
+    slots (pipeline/train, parallel/spatial) on U^2-Netp at 320 x 320,
+    batch 8, over (1, 2), (1, 4) and (2, 2) slots of this card, and the
+    full U^2-Net over (1, 2), each against the one-slot step; on a host
+    with two or four cards, also (1, 2) and (1, 4) a card a slot."""
+    t_phase = time.perf_counter()
+    b, (h, w) = TRAIN_BATCH, TRAIN_HW
+    dev = _slots(1)[0]
+    zero_counts()
+    module = U2NET(small=True).to(dev)
+    tx, state0 = TRAIN.create_train_state(module, seed=0, input_hw=(h, w))
+    step = TRAIN.make_train_step(module, tx)
+    imgs, masks = (t.to(dev) for t in train_batch(b, h, w, seed=16))
+    step(state0, imgs, masks)  # warm-up
+    _reset_peaks([dev])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state0, imgs, masks)
+    torch.cuda.synchronize()
+    ms_1 = (time.perf_counter() - t0) * 1e3
+    peak_1 = _peaks([dev])
+    print(f"[split] U2NETP {b}x3x{h}x{w} float32, one slot: {ms_1:.3f} ms a "
+          f"warm step, peak {peak_1} ({label})")
+    for shape in SPLIT_MESHES:
+        slots = _slots(shape[0] * shape[1])
+        sharded = TRAIN.shard_train_step(step, PM.make_mesh(shape,
+                                                            devices=slots))
+        r = _split_run(f"row split {shape}", step, sharded, state0, imgs,
+                       masks, SPLIT_STEPS, slots)
+        print(f"[split] shard_train_step U2NETP {b}x3x{h}x{w} over {shape} "
+              f"slots of one card, {SPLIT_STEPS} steps each held to the "
+              f"one-slot step from the same state: {_split_line(r)} "
+              f"({label})")
+
+    for n in (2, 4):
+        if torch.cuda.device_count() < n:
+            print(f"[split] (1, {n}) a card a slot: not measured (this host "
+                  f"has {torch.cuda.device_count()} card(s)) ({label})")
+            continue
+        cards = [torch.device("cuda", i) for i in range(n)]
+        sharded = TRAIN.shard_train_step(step, PM.make_mesh((1, n),
+                                                            devices=cards))
+        r = _split_run(f"row split over {n} cards", step, sharded, state0,
+                       imgs, masks, SPLIT_STEPS, cards)
+        print(f"[split] shard_train_step U2NETP {b}x3x{h}x{w} over (1, {n}), "
+              f"a card a slot: {_split_line(r)}; one card alone: peak "
+              f"{peak_1} ({label})")
+
+    fb, fh, fw = SPLIT_FULL
+    full = U2NET(small=False).to(dev)
+    ftx, fstate0 = TRAIN.create_train_state(full, seed=0, input_hw=(fh, fw))
+    fstep = TRAIN.make_train_step(full, ftx)
+    fimgs, fmasks = (t.to(dev) for t in train_batch(fb, fh, fw, seed=17))
+    r = _split_run("full U2NET row split (1, 2)", fstep,
+                   TRAIN.shard_train_step(fstep, PM.make_mesh(
+                       (1, 2), devices=_slots(2))),
+                   fstate0, fimgs, fmasks, 1, _slots(2))
+    n_params = sum(p.numel() for p in full.parameters())
+    print(f"[split] shard_train_step full U2NET ({n_params / 1e6:.1f} M "
+          f"parameters) {fb}x3x{fh}x{fw} "
+          f"over (1, 2) slots of one card, one step: {_split_line(r)} "
+          f"({label})")
+    launched = {k: v for k, v in read_counts().items() if v}
+    if launched:
+        fail(f"the row-split training step launched port kernels: {launched}")
+    print(f"[split] phase 16: {time.perf_counter() - t_phase:.1f} s ({label})")
 
 
 def main() -> None:
@@ -2420,6 +2585,7 @@ def main() -> None:
     run_cli(label)
     run_train(label)
     run_mesh(label)
+    run_row_split(label)
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

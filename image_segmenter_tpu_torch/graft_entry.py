@@ -12,7 +12,10 @@ unsharded run, with the JAX dry run's contracts:
 2. the full-resolution refine split over the rows of a (1, n) mesh
    against the unsplit one: under 1 % of pixels differ, by at most 2;
 3. `sharded_stencil` of a 3-row blur against the dense blur, to 1e-6;
-4. `shard_train_step` over 2 processes against the one-process step:
+4. `shard_train_step` over 2 processes on a (2, 1) mesh (whole rows, a
+   slot a process) and on a (2, 2) mesh (each image's rows split over a
+   process's 2 space slots, the JAX dry run's (dp, 2)), and in one
+   process over (1, 2) and (2, 2), against the one-slot step:
    loss within 1e-4 relative, the parameters the JAX check holds within
    1e-4 (`HELD_PARAMS`; every other parameter's gap is reported), and
    every parameter moved;
@@ -142,81 +145,143 @@ def spread(n: int, dev: torch.device) -> list:
     return [dev] * n
 
 
+# The layouts of check 4's ranks, by their space size: whole rows on one
+# slot a rank (data parallel), and rows over two slots (the JAX dry run's).
+RANK_SPACES = (1, 2)
+
+
+def rank_slots(rank: int, world: int, space: int,
+               dev: torch.device) -> list:
+    """The `space` slots of a rank: distinct cards where `spread` finds
+    space x world of them (card `rank` first, the rank's card in every
+    layout), else `space` slots of the rank's device."""
+    cards = spread(space * world, dev)
+    if len(set(cards)) == space * world:
+        return cards[rank::world]
+    return [spread(world, dev)[rank]] * space
+
+
+def _run_steps(fn, state, imgs, masks, steps: int, dev: torch.device):
+    """(state after the first step, losses, ms a step) of `steps` steps
+    of fn from `state`."""
+    first, losses, walls = None, [], []
+    for _ in range(steps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, loss = fn(state, imgs, masks)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        first = state if first is None else first
+    return first, losses, walls
+
+
+def _train_gaps(state0, first_sh, loss_sh, first_1, loss_1) -> dict:
+    """How a sharded run of steps from `state0` stands against the
+    one-slot run: the loss gap of each step, and after the first step
+    the parameters' gaps (later steps start from states that differ by
+    those gaps) and the least move of any parameter."""
+    diff = {k: (v - first_1.params[k]).abs()
+            for k, v in first_sh.params.items()}
+    return dict(
+        loss_gaps=[abs(a - c) / max(abs(c), 1e-9)
+                   for a, c in zip(loss_sh, loss_1)],
+        held_maxdiff=max(float(diff[k].max()) for k in HELD_PARAMS),
+        param_maxdiff=max(float(d.max()) for d in diff.values()),
+        params_over=sum(int((d > 1e-4).sum()) for d in diff.values()),
+        params_total=sum(d.numel() for d in diff.values()),
+        moved=min(float((v - state0.params[k]).abs().max())
+                  for k, v in first_sh.params.items()),
+        steps=int(first_sh.step))
+
+
+def _hold(r: dict, what: str) -> None:
+    """Check 4's contracts on `_train_gaps`' report of step 1."""
+    _require(np.isfinite(r["loss"][0]) and r["steps"] == 1, r)
+    _require(r["loss_gaps"][0] < 1e-4, f"{what}: train loss diverged: {r}")
+    _require(r["moved"] > 0, f"{what}: a parameter did not move: {r}")
+    _require(r["held_maxdiff"] <= 1e-4, f"{what}: params diverged: {r}")
+
+
 def train_rank(rank: int, world: int, device: str, b: int, hw: int,
                steps: int = 1, threads: int = 0) -> dict:
-    """One rank of check 4 (run by parallel/distributed.run_ranks):
-    `steps` data-parallel steps of U^2-Netp on the seeded batch; rank 0
-    then takes the same steps in one process and compares. Returns the
-    losses and the ms of each sharded step and, on rank 0, the loss gap of
-    each step and the parameters' gaps after the first (later steps start
-    from states that differ by those gaps)."""
+    """One rank of check 4 (run by parallel/distributed.run_ranks): for
+    each space size of `RANK_SPACES`, `steps` steps of U^2-Netp on the
+    seeded batch over a (world, space) mesh, this rank's images on its
+    slots (`rank_slots`); rank 0 then takes the same steps in one process
+    on one slot and compares (`_train_gaps`). Returns by space size the
+    losses, the ms of each sharded step and the slots and, on rank 0, the
+    gaps."""
     from image_segmenter_tpu_torch.parallel import distributed as D
     from image_segmenter_tpu_torch.pipeline import train as TR
 
     if threads:
         torch.set_num_threads(threads)
-    dev = spread(world, resolve_device(device))[rank]
+    dev = rank_slots(rank, world, 1, resolve_device(device))[0]
     if dev.index is not None:  # a card of its own: NCCL works on it
         torch.cuda.set_device(dev)
     module = U2NET(small=True).to(dev)
     tx, state0 = TR.create_train_state(module, seed=0, input_hw=(hw, hw))
     step = TR.make_train_step(module, tx)
     imgs, masks = (t.to(dev) for t in train_batch(b, hw))
-    mesh = D.hybrid_mesh((1, 1), (world, 1), devices=[dev])
-    sharded = TR.shard_train_step(step, mesh)
-
-    def run(fn):
-        """(state after the first step, losses, ms a step)."""
-        state, first, losses, walls = state0, None, [], []
-        for _ in range(steps):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            state, loss = fn(state, imgs, masks)
-            losses.append(float(loss))
-            walls.append((time.perf_counter() - t0) * 1e3)
-            first = state if first is None else first
-        return first, losses, walls
-
-    state_sh, loss_sh, walls = run(sharded)
-    out = {"rank": rank, "loss": loss_sh, "ms": walls,
-           "backend": torch.distributed.get_backend()}
+    out, firsts = {}, {}
+    for space in RANK_SPACES:
+        slots = rank_slots(rank, world, space, resolve_device(device))
+        mesh = D.hybrid_mesh((1, space), (world, 1), devices=slots)
+        firsts[space], loss, walls = _run_steps(
+            TR.shard_train_step(step, mesh), state0, imgs, masks, steps, dev)
+        out[space] = {"loss": loss, "ms": walls,
+                      "slots": [str(d) for d in slots],
+                      "backend": torch.distributed.get_backend()}
     if rank == 0:
-        state_1, loss_1, walls_1 = run(step)
-        diff = {k: (v - state_1.params[k]).abs()
-                for k, v in state_sh.params.items()}
-        out.update(
-            loss_1=loss_1, ms_1=walls_1,
-            loss_gaps=[abs(a - c) / max(abs(c), 1e-9)
-                       for a, c in zip(loss_sh, loss_1)],
-            held_maxdiff=max(float(diff[k].max()) for k in HELD_PARAMS),
-            param_maxdiff=max(float(d.max()) for d in diff.values()),
-            params_over=sum(int((d > 1e-4).sum()) for d in diff.values()),
-            params_total=sum(d.numel() for d in diff.values()),
-            moved=min(float((v - state0.params[k]).abs().max())
-                      for k, v in state_sh.params.items()),
-            steps=int(state_sh.step))
+        first_1, loss_1, walls_1 = _run_steps(step, state0, imgs, masks,
+                                              steps, dev)
+        for space, r in out.items():
+            r.update(loss_1=loss_1, ms_1=walls_1, **_train_gaps(
+                state0, firsts[space], r["loss"], first_1, loss_1))
     return out
 
 
 def check_train(device: str, b: int, hw: int, steps: int = 1,
                 threads: int = 0) -> dict:
-    """Check 4: rank 0's report of `train_rank` over 2 processes (on a
-    card each under NCCL where the host has two, else gloo); the first
-    step held to loss 1e-4 relative, `HELD_PARAMS` within 1e-4 and every
-    parameter moved, and both ranks report the same losses."""
+    """Check 4 over processes: rank 0's reports of `train_rank` over 2
+    processes (on a card each under NCCL where the host has two, else
+    gloo) by space size, each held to check 4's contracts, both ranks
+    reporting the same losses."""
     from image_segmenter_tpu_torch.parallel.distributed import run_ranks
 
     res = run_ranks(train_rank, 2, args=(device, b, hw, steps, threads),
                     timeout=900)
-    r0 = res[0]
-    _require(res[1]["loss"] == r0["loss"], f"ranks disagree on the loss: "
-             f"{res}")
-    _require(all(np.isfinite(r0["loss"])) and r0["steps"] == 1, r0)
-    _require(r0["loss_gaps"][0] < 1e-4, f"sharded train loss diverged: {r0}")
-    _require(r0["moved"] > 0, f"a parameter did not move: {r0}")
-    _require(r0["held_maxdiff"] <= 1e-4, f"sharded params diverged: {r0}")
-    return r0
+    for space, r0 in res[0].items():
+        _require(res[1][space]["loss"] == r0["loss"], f"ranks disagree on "
+                 f"the loss over {space} space slot(s): {res}")
+        _hold(r0, f"2 ranks x {space} space slot(s)")
+    return res[0]
+
+
+def check_train_one_process(device: str, b: int, hw: int,
+                            shapes=((1, 2), (2, 2))) -> dict:
+    """Check 4 in one process: one step of `shard_train_step` over each
+    mesh shape (distinct cards where `spread` finds them) against the
+    one-slot step, held to check 4's contracts; the reports by shape."""
+    from image_segmenter_tpu_torch.parallel import mesh as PM
+    from image_segmenter_tpu_torch.pipeline import train as TR
+
+    dev = resolve_device(device)
+    module = U2NET(small=True).to(dev)
+    tx, state0 = TR.create_train_state(module, seed=0, input_hw=(hw, hw))
+    step = TR.make_train_step(module, tx)
+    imgs, masks = (t.to(dev) for t in train_batch(b, hw))
+    first_1, loss_1, _ = _run_steps(step, state0, imgs, masks, 1, dev)
+    out = {}
+    for shape in shapes:
+        mesh = PM.make_mesh(shape, devices=spread(shape[0] * shape[1], dev))
+        first, loss, walls = _run_steps(TR.shard_train_step(step, mesh),
+                                        state0, imgs, masks, 1, dev)
+        out[shape] = dict(loss=loss, ms=walls, **_train_gaps(
+            state0, first, loss, first_1, loss_1))
+        _hold(out[shape], f"one process, mesh {shape}")
+    return out
 
 
 def dryrun_multichip(n_slots: int, device="cuda") -> str:
@@ -277,8 +342,10 @@ def dryrun_multichip(n_slots: int, device="cuda") -> str:
     stencil_err = float((y.cpu() - blur3(x)).abs().max())
     _require(stencil_err <= 1e-6, f"halo stencil error {stencil_err}")
 
-    # 4. the data-parallel training step over 2 processes
+    # 4. the training step: 2 processes x 1 and 2 space slots, and one
+    # process
     tr = check_train(str(dev), 4, 32, threads=2 if dev.type == "cpu" else 0)
+    tr1 = check_train_one_process(str(dev), 4, 32)
 
     # 5. the stages on their own sub-meshes against the one-slot run
     staged_line = "staged: skipped (needs >= 3 slots)"
@@ -299,10 +366,18 @@ def dryrun_multichip(n_slots: int, device="cuda") -> str:
             f"{[(round(a, 2), round(c, 2)) for a, c in qerr]} | sharded "
             f"matting agreement={1 - mat_disagree:.4f} (max |diff|="
             f"{mat_maxdiff}) | halo stencil max err {stencil_err:.1e} | "
-            f"train step loss={tr['loss'][0]:.4f} (2 {tr['backend']} ranks / "
-            f"one process gap {tr['loss_gaps'][0]:.1e}, fuse conv max |diff| "
-            f"{tr['held_maxdiff']:.1e}, {tr['params_over']} of "
-            f"{tr['params_total']} parameters over 1e-4) | {staged_line}")
+            f"train step loss={tr[1]['loss'][0]:.4f} ("
+            + "; ".join(
+                f"2 {r['backend']} ranks x {sp} space "
+                f"slot{'s' if sp > 1 else ''} on {', '.join(r['slots'])} / "
+                f"one slot gap {r['loss_gaps'][0]:.1e}, fuse conv max |diff| "
+                f"{r['held_maxdiff']:.1e}, {r['params_over']} of "
+                f"{r['params_total']} parameters over 1e-4"
+                for sp, r in tr.items())
+            + "; one process "
+            + ", ".join(f"{s} gap {r['loss_gaps'][0]:.1e}"
+                        for s, r in tr1.items())
+            + f") | {staged_line}")
     print(line)
     return line
 

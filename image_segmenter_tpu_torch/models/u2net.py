@@ -11,13 +11,24 @@ convolution in bfloat16 (the card accumulates in float32), adds the bias
 in bfloat16, normalises in float32, applies ReLU and casts back to
 bfloat16. ISNet's conv_in runs in bfloat16 too, bias added in bfloat16.
 The side convolutions and the fuse conv run in float32, and the side
-outputs are float32 before their upsample.
+outputs are float32 before their upsample. "float32" is the parameters'
+own type, which they always have in use: a module cast by `.double()`
+computes in float64 throughout.
 
 `train=True` (the `train` argument of the Flax modules; `nn.Module.training`
 does not switch it) normalises with the batch's statistics as Flax's
 BatchNorm does and updates the running buffers (pipeline/train.py);
 within `batch_norm_sum` (the data-parallel step) the statistics are the
 whole batch's, summed over the processes.
+
+The forward takes a tensor or a `parallel/spatial.Rows`, the activation
+split into row blocks over the slots of a mesh (the training step's
+space axis). The five operations whose result depends on more than a
+pixel's own channels go through helpers that take either: the
+convolution (`_conv`), the training statistics (`_moments`), the pool
+(`_maxpool2`), the upsample (`_upsample`) and the channel concatenation
+(`_cat`); the rest is elementwise, which `Rows` does block by block. On a
+tensor every helper is the operation it was, with its bits.
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ import contextvars
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from image_segmenter_tpu_torch.parallel import spatial as S
 
 
 def _bilinear(x: torch.Tensor, hw) -> torch.Tensor:
@@ -62,9 +75,35 @@ def upsample_like(x: torch.Tensor, ref_hw) -> torch.Tensor:
     return x
 
 
-def _maxpool2(x: torch.Tensor) -> torch.Tensor:
+def _upsample(x, ref):
+    """`x` resized to the size of `ref` (a tensor or row blocks of the
+    level to resize to)."""
+    if isinstance(x, S.Rows):
+        return S.upsample(x, ref)
+    return upsample_like(x, ref.shape[2:])
+
+
+def _maxpool2(x):
+    if isinstance(x, S.Rows):
+        return S.maxpool2(x)
     # the JAX package pads (0, 1) on odd sizes: ceil_mode
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+def _conv(x, weight: torch.Tensor, bias=None, dilation: int = 1):
+    """A stride-1 convolution, zero padding dilation * (k // 2) (the
+    network's 3 x 3 and 1 x 1 convolutions)."""
+    if isinstance(x, S.Rows):
+        return S.conv2d(x, weight, bias, dilation)
+    pad = dilation * (weight.shape[-1] // 2)
+    return F.conv2d(x, weight, bias, padding=pad, dilation=dilation)
+
+
+def _cat(*xs):
+    """Channel concatenation."""
+    if isinstance(xs[0], S.Rows):
+        return S.cat(xs)
+    return torch.cat(xs, 1)
 
 
 # A differentiable sum over the processes of a data-parallel training step
@@ -85,6 +124,26 @@ def batch_norm_sum(fn):
         _BN_SUM.reset(token)
 
 
+def _moments(y):
+    """Flax's training statistics of y over (N, H, W): float32 mean and
+    the fast biased variance E[y^2] - E[y]^2 clipped at 0. Within
+    `batch_norm_sum`, and on row blocks, they are formed from per-channel
+    sum(y), sum(y * y) and the count, added over the blocks on the first
+    slot and then summed by `batch_norm_sum`'s fn."""
+    bn_sum = _BN_SUM.get()
+    if bn_sum is None and not isinstance(y, S.Rows):
+        mean = y.mean((0, 2, 3))
+        return mean, torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
+                                 min=0.0)
+    sums = S.channel_sums(y)
+    if bn_sum is not None:
+        sums = bn_sum(sums)
+    c = (sums.shape[0] - 1) // 2
+    mean = sums[:c] / sums[2 * c]
+    return mean, torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                             min=0.0)
+
+
 class REBNCONV(nn.Module):
     """conv3x3(dilation d) + BN + ReLU — the U^2-Net building block."""
 
@@ -94,35 +153,25 @@ class REBNCONV(nn.Module):
         self.conv_s1 = nn.Conv2d(in_ch, out_ch, 3, padding=dirate,
                                  dilation=dirate)
         self.bn_s1 = nn.BatchNorm2d(out_ch, eps=1e-5)
-        self.dtype = torch.bfloat16 if half else torch.float32
+        self.bf16 = half
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The convolution's type: bfloat16 with `half`, else the
+        parameters' own."""
+        return torch.bfloat16 if self.bf16 else self.conv_s1.weight.dtype
 
     def forward(self, x, train: bool = False):
         conv, bn = self.conv_s1, self.bn_s1
-        y = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), None,
-                     padding=conv.padding, dilation=conv.dilation)
-        y = y + conv.bias.to(self.dtype)[:, None, None]
-        y = y.to(torch.float32)
+        y = _conv(x.to(self.dtype), conv.weight.to(self.dtype), None,
+                  conv.dilation[0])
+        y = (y + conv.bias.to(self.dtype)[:, None, None]).to(bn.weight.dtype)
         if train:
             # Flax's BatchNorm: float32 statistics over (N, H, W), the fast
             # biased variance E[y^2] - E[y]^2 clipped at 0, and the running
             # buffers moved by momentum 0.9 with that biased variance
             # (BatchNorm2d would move them with the unbiased one)
-            bn_sum = _BN_SUM.get()
-            if bn_sum is None:
-                mean = y.mean((0, 2, 3))
-                var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean,
-                                  min=0.0)
-            else:
-                # the statistics of the batch over every process: sum(y),
-                # sum(y * y) and the count summed, then the same moments
-                c = y.shape[1]
-                count = torch.full((1,), y.numel() // c, dtype=y.dtype,
-                                   device=y.device)
-                sums = bn_sum(torch.cat([y.sum((0, 2, 3)),
-                                          (y * y).sum((0, 2, 3)), count]))
-                mean = sums[:c] / sums[2 * c]
-                var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
-                                  min=0.0)
+            mean, var = _moments(y)
             with torch.no_grad():
                 bn.running_mean.copy_(0.9 * bn.running_mean
                                       + (1.0 - 0.9) * mean)
@@ -133,7 +182,7 @@ class REBNCONV(nn.Module):
         mul = torch.rsqrt(var + bn.eps) * bn.weight
         y = (y - mean[:, None, None]) * mul[:, None, None] \
             + bn.bias[:, None, None]
-        return torch.relu(y).to(self.dtype)
+        return y.relu().to(self.dtype)
 
 
 class RSU(nn.Module):
@@ -168,9 +217,8 @@ class RSU(nn.Module):
         # decoder
         for i in range(self.height - 1, 0, -1):
             skip = enc[i - 1]
-            hx = upsample_like(hx, skip.shape[2:])
-            hx = getattr(self, f"rebnconv{i}d")(torch.cat([hx, skip], 1),
-                                                train)
+            hx = getattr(self, f"rebnconv{i}d")(
+                _cat(_upsample(hx, skip), skip), train)
         return hx + hxin
 
 
@@ -195,9 +243,9 @@ class RSU4F(nn.Module):
         hx2 = self.rebnconv2(hx1, train)
         hx3 = self.rebnconv3(hx2, train)
         hx4 = self.rebnconv4(hx3, train)
-        hx3d = self.rebnconv3d(torch.cat([hx4, hx3], 1), train)
-        hx2d = self.rebnconv2d(torch.cat([hx3d, hx2], 1), train)
-        hx1d = self.rebnconv1d(torch.cat([hx2d, hx1], 1), train)
+        hx3d = self.rebnconv3d(_cat(hx4, hx3), train)
+        hx2d = self.rebnconv2d(_cat(hx3d, hx2), train)
+        hx1d = self.rebnconv1d(_cat(hx2d, hx1), train)
         return hx1d + hxin
 
 
@@ -230,9 +278,9 @@ def _add_body(m: nn.Module, in_ch: int, out_ch: int, half: bool, cfg_enc,
         setattr(m, f"side{i}", nn.Conv2d(c, out_ch, 3, padding=1))
 
 
-def _body(m: nn.Module, hx: torch.Tensor, in_hw, train: bool = False) -> list:
+def _body(m: nn.Module, hx, ref, train: bool = False) -> list:
     """The encoder-decoder from `hx`: the six side logits d1..d6, float32,
-    upsampled to in_hw."""
+    upsampled to the size of `ref` (the network's input)."""
     skips = []
     for i in range(1, 5):
         hx = getattr(m, f"stage{i}")(hx, train)
@@ -242,20 +290,19 @@ def _body(m: nn.Module, hx: torch.Tensor, in_hw, train: bool = False) -> list:
     hx6 = m.stage6(_maxpool2(hx5), train)
 
     # decoder
-    hx5d = m.stage5d(torch.cat([upsample_like(hx6, hx5.shape[2:]), hx5], 1),
-                     train)
+    hx5d = m.stage5d(_cat(_upsample(hx6, hx5), hx5), train)
     dec = [hx5d]
     hx = hx5d
     for i in (4, 3, 2, 1):
         skip = skips[i - 1]
-        hxup = upsample_like(hx, skip.shape[2:])
-        hx = getattr(m, f"stage{i}d")(torch.cat([hxup, skip], 1), train)
+        hx = getattr(m, f"stage{i}d")(_cat(_upsample(hx, skip), skip), train)
         dec.append(hx)
 
     # side outputs (d1..d6) in float32
     feats = (dec[4], dec[3], dec[2], dec[1], dec[0], hx6)
-    return [upsample_like(getattr(m, f"side{i}")(f.to(torch.float32)), in_hw)
-            for i, f in enumerate(feats, start=1)]
+    sides = [getattr(m, f"side{i}") for i in range(1, 7)]
+    return [_upsample(_conv(f.to(side.weight.dtype), side.weight, side.bias),
+                      ref) for side, f in zip(sides, feats)]
 
 
 class U2NET(nn.Module):
@@ -263,7 +310,8 @@ class U2NET(nn.Module):
 
     forward takes (B, 3, H, W) float32 and returns [sigmoid(d0), ...,
     sigmoid(d6)], each (B, out_ch, H, W) float32; with train=True the
-    BatchNorms use and record the batch's statistics.
+    BatchNorms use and record the batch's statistics. Given row blocks
+    (`parallel/spatial.Rows`), it returns row blocks of the same split.
     """
 
     def __init__(self, out_ch: int = 1, small: bool = False,
@@ -273,9 +321,9 @@ class U2NET(nn.Module):
         self.outconv = nn.Conv2d(6 * out_ch, out_ch, 1)
 
     def forward(self, x, train: bool = False):
-        ds = _body(self, x, x.shape[2:], train)
-        d0 = self.outconv(torch.cat(ds, 1))
-        return [torch.sigmoid(d) for d in (d0, *ds)]
+        ds = _body(self, x, x, train)
+        d0 = _conv(_cat(*ds), self.outconv.weight, self.outconv.bias)
+        return [d.sigmoid() for d in (d0, *ds)]
 
 
 class ISNet(nn.Module):
@@ -299,4 +347,4 @@ class ISNet(nn.Module):
         hxin = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), None,
                         stride=2, padding=1)
         hxin = hxin + conv.bias.to(self.dtype)[:, None, None]
-        return [torch.sigmoid(d) for d in _body(self, hxin, x.shape[2:])]
+        return [torch.sigmoid(d) for d in _body(self, hxin, x)]

@@ -10,14 +10,16 @@ d0 and all six side outputs, with the network's BatchNorms in train mode
 The step runs on the device of the module and of the batch; float32
 stays float32 on the card (`strict_f32`, no TF32).
 
-`shard_train_step` is the data-parallel step: the data axis is the
-process group (one rank per data shard, DDP's layout), every BatchNorm
-normalises with the whole batch's statistics, the loss is the global
-mean and the gradients are summed over the ranks before Adam, so every
-rank takes the one-device step on the whole batch. The JAX package also
-splits image rows over the space axis (GSPMD partitions the
-convolutions); here rows stay whole within a data shard, so a space axis
-gives the same step without splitting its work.
+`shard_train_step` is the step over a (data, space) mesh, the JAX
+package's `shard_train_step` under GSPMD written out by hand: the batch
+splits over the data groups (across processes, one rank per share of
+them, and within a process over its own groups) and each image's rows
+over its group's space slots (`parallel/spatial.Rows`: every convolution
+reads halo rows from its neighbours, the pools and upsamples read the
+rows their windows need). Every BatchNorm normalises with the whole
+batch's statistics, the loss is the global mean and the gradients are
+its gradients, summed onto the mesh's first slot and then over the ranks
+before Adam, so every rank takes the one-device step on the whole batch.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from torch.func import functional_call
 from image_segmenter_tpu_torch.models import u2net as U2
 from image_segmenter_tpu_torch.models.registry import _seeded_init
 from image_segmenter_tpu_torch.parallel import distributed as D
-from image_segmenter_tpu_torch.parallel.mesh import split_bounds
+from image_segmenter_tpu_torch.parallel.mesh import split_bounds, to_slot
+from image_segmenter_tpu_torch.parallel.spatial import Rows
 from image_segmenter_tpu_torch.utils.backend import strict_f32, true_div
 
 Tree = Dict[str, torch.Tensor]
@@ -111,12 +114,15 @@ def _bce(pred: torch.Tensor, target: torch.Tensor,
 
 
 def loss_and_grads(module: torch.nn.Module, state: TrainState,
-                   imgs: torch.Tensor, masks: torch.Tensor,
-                   global_batch: Optional[int] = None):
+                   imgs, masks, global_batch: Optional[int] = None):
     """(loss, gradients by parameter name, new batch statistics) of the
     U^2-Net loss at `state`'s weights, BatchNorms in train mode.
 
-    imgs (B, 3, H, W) float32 normalized; masks (B, H, W) in [0,1].
+    imgs (B, 3, H, W) float32 normalized; masks (B, H, W) in [0,1]. Or
+    both as row blocks (`parallel/spatial.Rows`, the masks (B, 1, H, W)):
+    the forward then runs block by block, each block's BCE is its sum over
+    the global count, and the partial losses and, through the blocks'
+    copies of the weights, the gradients add up on the state's device.
     global_batch: the images are this process's shard of a batch of that
     size split over the process group (shard_train_step); the statistics,
     loss and gradients are then the whole batch's, the same on every
@@ -125,7 +131,6 @@ def loss_and_grads(module: torch.nn.Module, state: TrainState,
               for k, v in state.params.items()}
     # the forward moves these copies in place; the state stays as it was
     stats = {k: v.clone() for k, v in state.batch_stats.items()}
-    target = masks[:, None]
     sharded = global_batch is not None
     # a data shard: the whole batch's BatchNorm statistics, the local sum
     # of the loss over the global count, and the gradients summed
@@ -133,8 +138,18 @@ def loss_and_grads(module: torch.nn.Module, state: TrainState,
           else contextlib.nullcontext()):
         outs = functional_call(module, {**params, **stats}, (imgs,),
                                {"train": True})
-    count = global_batch * target[0].numel() if sharded else None
-    loss = sum(_bce(d, target, count) for d in outs)
+    if isinstance(imgs, Rows):
+        first = next(iter(params.values())).device
+        batch = global_batch or sum(g[0].shape[0] for g in masks.blocks)
+        count = batch * masks.height * masks.width
+        loss = torch.stack([
+            to_slot(_bce(p, t, count), first)
+            for d in outs for p, t in zip(d.flat(), masks.flat())
+            if p.shape[2]]).sum()
+    else:
+        target = masks[:, None]
+        count = global_batch * target[0].numel() if sharded else None
+        loss = sum(_bce(d, target, count) for d in outs)
     grads = torch.autograd.grad(loss, list(params.values()))
     loss = loss.detach()
     if sharded:
@@ -146,10 +161,10 @@ def loss_and_grads(module: torch.nn.Module, state: TrainState,
 
 
 def make_train_step(module: torch.nn.Module, tx: Adam):
-    def train_step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor,
+    def train_step(state: TrainState, imgs, masks,
                    global_batch: Optional[int] = None):
         """imgs (B, 3, H, W) float32 normalized; masks (B, H, W) in [0,1];
-        global_batch as in `loss_and_grads`."""
+        or both as row blocks, and global_batch, as in `loss_and_grads`."""
         loss, grads, stats = loss_and_grads(module, state, imgs, masks,
                                             global_batch)
         updates, new_opt = tx.update(grads, state.opt_state)
@@ -177,31 +192,46 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
 
 
 def shard_train_step(train_step, mesh, tx=None):
-    """The data-parallel form of `train_step` (from `make_train_step`)
-    over `mesh`'s data axis.
+    """`train_step` (from `make_train_step`) over `mesh`'s (data, space)
+    slots, as the JAX step runs with the batch on P(DATA, SPACE, None,
+    None) and the state replicated.
 
-    The data axis is the process group (`parallel/distributed.initialize`;
-    `hybrid_mesh` lays it out): its size must be the number of processes.
-    Each rank is called with the whole batch, as the JAX step is, and
-    computes on its `torch.tensor_split` share; BatchNorm sums, the loss
-    and the gradients are summed across the ranks, so every rank returns
-    the same next state and the global loss. Rows stay whole within a
-    shard: a space axis > 1 gives the same step (the JAX package's
-    row-split convolutions are not ported). With one process this is
-    `train_step` itself. `tx` is accepted for the JAX signature."""
+    Each process drives its own rows of the mesh (`local_mesh`; one
+    process drives the whole mesh) and is called with the whole batch, as
+    the JAX step is. The batch splits over the mesh's data groups as
+    `torch.tensor_split` cuts it; this process's groups take their shares,
+    and each share's rows split over its group's space slots
+    (`parallel/spatial.Rows`). The BatchNorm sums, the loss and the
+    gradients add over the slots on the process's first slot, then over
+    the processes, so every process returns the one-device step's next
+    state and loss on the whole batch, on its first slot, where the state
+    must lie. A one-slot local mesh runs the step on whole tensors; with
+    one process that is `train_step` itself. `tx` is accepted for the JAX
+    signature."""
     del tx
     world = D.process_count()
-    if world == 1:
-        return train_step
-    if mesh.shape[0] != world:
+    local = D.local_mesh(mesh)
+    if local.shape[0] * world != mesh.shape[0]:
         raise ValueError(f"shard_train_step: the mesh's data axis has "
-                         f"{mesh.shape[0]} shards, the process group "
-                         f"{world} ranks")
-    rank = D.process_index()
+                         f"{mesh.shape[0]} groups, this process drives "
+                         f"{local.shape[0]} of them over {world} processes")
+    if local.size == 1 and world == 1:
+        return train_step
+    groups = np.nonzero(mesh.processes[:, 0] == D.process_index())[0]
 
     def step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor):
-        lo, hi = split_bounds(imgs.shape[0], world)[rank]
-        return train_step(state, imgs[lo:hi], masks[lo:hi],
-                          global_batch=imgs.shape[0])
+        n = imgs.shape[0]
+        if n < mesh.shape[0]:
+            raise ValueError(f"shard_train_step: a batch of {n} over "
+                             f"{mesh.shape[0]} data groups")
+        cuts = split_bounds(n, mesh.shape[0])
+        lo, hi = cuts[groups[0]][0], cuts[groups[-1]][1]
+        global_batch = n if world > 1 else None
+        if local.size == 1:
+            return train_step(state, imgs[lo:hi], masks[lo:hi],
+                              global_batch=global_batch)
+        return train_step(state, Rows.split(imgs[lo:hi], local.devices),
+                          Rows.split(masks[lo:hi, None], local.devices),
+                          global_batch=global_batch)
 
     return step

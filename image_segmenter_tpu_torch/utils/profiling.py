@@ -71,15 +71,17 @@ def capture_device_trace(fn, outdir: str):
     (op_name, total_us, count) over the kernels, memsets and copies that
     ran on a CUDA device, sorted by total time; [] when fn put nothing on
     a card. The profiler can drop a record, never add one, so a count is
-    a lower bound.
+    a lower bound. With a card only the device is traced: the host's
+    operations, which nothing here reads, made the trace of a training
+    step with 40,000 device operations take 40 s to read back instead of
+    12 (same device time and count, H100).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(outdir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
+                  else ProfilerActivity.CPU]
     with profile(activities=activities) as prof:
         fn()
         if torch.cuda.is_available():

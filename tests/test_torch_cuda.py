@@ -773,3 +773,37 @@ def test_train_step_card_matches_cpu(cuda):
     assert np.median(rel) <= 0.1
     for k, v in sg.items():
         assert (v - sc[k]).abs().max() <= 1e-3, k
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_row_split_train_step_card_matches_one_slot(cuda, shape):
+    """`shard_train_step` with the rows split over slots of the card
+    (U^2-Netp, 4 x 64 x 64, standard normal images) against the one-slot
+    step from the same state, for 2 steps, under chip_smoke phase 16's
+    bounds: each step's loss within 1e-4 relative; after step 1 the fuse
+    conv (graft_entry.HELD_PARAMS) within 1e-4 and the statistics within
+    1e-3; every parameter moved."""
+    from image_segmenter_tpu_torch import graft_entry as G
+    from image_segmenter_tpu_torch.models.u2net import U2NET
+    from image_segmenter_tpu_torch.parallel import mesh as PM
+    from image_segmenter_tpu_torch.pipeline import train as TR
+
+    module = U2NET(small=True).to(cuda)
+    tx, state0 = TR.create_train_state(module, seed=0)
+    step = TR.make_train_step(module, tx)
+    imgs, masks = (t.to(cuda) for t in G.train_batch(4, 64))
+    sharded = TR.shard_train_step(
+        step, PM.make_mesh(shape, devices=[cuda] * (shape[0] * shape[1])))
+    state = state0
+    for i in range(2):
+        new, loss = sharded(state, imgs, masks)
+        ref, loss_1 = step(state, imgs, masks)
+        assert abs(float(loss) - float(loss_1)) <= 1e-4 * abs(float(loss_1))
+        if i == 0:
+            for k in G.HELD_PARAMS:
+                assert (new.params[k] - ref.params[k]).abs().max() <= 1e-4, k
+            for k, v in new.batch_stats.items():
+                assert (v - ref.batch_stats[k]).abs().max() <= 1e-3, k
+        state = new
+    for k, v in state.params.items():
+        assert (v - state0.params[k]).abs().max() > 0, k

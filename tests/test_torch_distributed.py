@@ -1,15 +1,13 @@
-"""The port's process group, hybrid mesh and data-parallel training step
+"""The port's process group, hybrid mesh and sharded training step
 (parallel/distributed.py, pipeline/train.shard_train_step) and its dry
 run (graft_entry.py), on the CPU.
 
 Two tests spawn processes: two gloo ranks that mirror
 tests/test_distributed.py (the hybrid mesh's leading axis crosses the
 processes, a global sum of 16) and hold `shard_train_step` against the
-one-process step, and the dry run, whose check 4 spawns two more.
+one-process step, with whole rows and with each rank's rows split over
+two space slots, and the dry run, whose check 4 spawns two more.
 """
-
-import inspect
-import textwrap
 
 import numpy as np
 import pytest
@@ -26,41 +24,38 @@ torch.set_num_threads(2)
 CPU = torch.device("cpu")
 
 
-def _float64_twin() -> None:
-    """Make U^2-Net compute in float64 in this process: its forward casts
-    to float32 in three places, which this rewrites."""
-    for owner, name in ((U, "_body"), (U.U2NET, "forward"),
-                        (U.REBNCONV, "forward")):
-        fn = getattr(owner, name)
-        src = textwrap.dedent(inspect.getsource(fn))
-        ns = {}
-        exec(src.replace("torch.float32", "torch.float64"), U.__dict__, ns)
-        setattr(owner, name, ns[name])
-
-
 def _f64_grads(rank: int, world: int):
-    """Gradients of one data-parallel shard and, on rank 0, of the whole
-    batch in one process, in float64 at 32 x 32, batch 4."""
-    _float64_twin()
+    """Loss and gradients of `shard_train_step` over
+    `hybrid_mesh((1, space), (world, 1))` for each space size of
+    `G.RANK_SPACES` (a rank's share of the batch whole, and its rows over
+    two slots of its process; Adam's first moment after one step is 0.1
+    of the gradient) and, on rank 0, of the whole batch in one process,
+    in float64 at 32 x 32, batch 4. A module cast by `.double()` computes
+    in float64 (models/u2net.py)."""
     module = U.U2NET(small=True)
-    _, st = TR.create_train_state(module, seed=0, input_hw=(32, 32))
+    tx, st = TR.create_train_state(module, seed=0, input_hw=(32, 32))
     module.double()
-    for m in module.modules():
-        if isinstance(m, U.REBNCONV):
-            m.dtype = torch.float64
-    st = st._replace(params={k: v.double() for k, v in st.params.items()},
+    params = {k: v.double() for k, v in st.params.items()}
+    st = st._replace(params=params, opt_state=tx.init(params),
                      batch_stats={k: v.double()
                                   for k, v in st.batch_stats.items()})
     imgs, masks = (t.double() for t in G.train_batch(4, 32))
-    lo, hi = TM.split_bounds(4, world)[rank]
-    loss, g, _ = TR.loss_and_grads(module, st, imgs[lo:hi], masks[lo:hi],
-                                   global_batch=4)
+    step = TR.make_train_step(module, tx)
+    runs = []
+    for space in G.RANK_SPACES:
+        mesh = D.hybrid_mesh((1, space), (world, 1), devices=[CPU] * space)
+        new, loss = TR.shard_train_step(step, mesh)(st, imgs, masks)
+        runs.append((loss, {k: m / 0.1
+                            for k, m in new.opt_state["mu"].items()}))
     if rank != 0:
         return None
     loss_1, g_1, _ = TR.loss_and_grads(module, st, imgs, masks)
-    rel = max(float((g[k] - g_1[k]).norm() / g_1[k].norm())
-              for k in g if not k.endswith("conv_s1.bias"))
-    return abs(float(loss) - float(loss_1)) / float(loss_1), rel
+    out = []
+    for loss, g in runs:
+        out += [abs(float(loss) - float(loss_1)) / float(loss_1),
+                max(float((g[k] - g_1[k]).norm() / g_1[k].norm())
+                    for k in g if not k.endswith("conv_s1.bias"))]
+    return out
 
 
 def _rank(rank: int, world: int) -> dict:
@@ -101,20 +96,26 @@ def test_two_process_gloo_group_and_sharded_train_step():
         assert procs[0, 0] != procs[1, 0]
         assert r["total"] == 16.0
         assert r["grad_sum"] == (6.0, 4.0)
-        assert r["train"]["loss"] == res[0]["train"]["loss"]
-    tr = res[0]["train"]
-    print({k: v for k, v in tr.items() if k not in ("ms", "ms_1")})
-    assert tr["steps"] == 1 and np.isfinite(tr["loss"][0])
-    assert tr["loss_gaps"][0] < 1e-4
-    assert tr["held_maxdiff"] <= 1e-4
-    assert tr["moved"] > 0
+        assert set(r["train"]) == set(G.RANK_SPACES)
+        for space, t in r["train"].items():
+            assert t["loss"] == res[0]["train"][space]["loss"]
+            assert len(t["slots"]) == space
+    # whole rows (a slot a rank) and each rank's rows over 2 space slots
+    for space, tr in res[0]["train"].items():
+        print(space, {k: v for k, v in tr.items() if k not in ("ms", "ms_1")})
+        assert tr["steps"] == 1 and np.isfinite(tr["loss"][0])
+        assert tr["loss_gaps"][0] < 1e-4
+        assert tr["held_maxdiff"] <= 1e-4
+        assert tr["moved"] > 0
     # in float64 the sharded BatchNorm sums, loss and gradient sum are the
     # one-process step's to rounding: the float32 spread is the
     # cancellation of tiny BatchNorm sets, not the reduction
-    loss_gap, grad_rel = res[0]["f64"]
+    loss_gap, grad_rel, loss_gap_sp, grad_rel_sp = res[0]["f64"]
     print(f"float64: loss gap {loss_gap:.2e}, worst gradient relative L2 "
-          f"{grad_rel:.2e}")
+          f"{grad_rel:.2e}; rows over 2 space slots a rank: "
+          f"{loss_gap_sp:.2e}, {grad_rel_sp:.2e}")
     assert loss_gap < 1e-12 and grad_rel < 1e-9
+    assert loss_gap_sp < 1e-12 and grad_rel_sp < 1e-9
 
 
 def test_dryrun_multichip_on_the_cpu():
@@ -123,6 +124,11 @@ def test_dryrun_multichip_on_the_cpu():
     assert line.startswith("dryrun_multichip OK: 4 slots on cpu, mesh dp=2 "
                            "sp=2")
     assert "2 gloo ranks" in line
+    # check 4 on (world, 1) and (world, 2), and in one process on (1, 2)
+    # and (2, 2)
+    assert "2 gloo ranks x 1 space slot on cpu /" in line
+    assert "2 gloo ranks x 2 space slots on cpu, cpu" in line
+    assert "one process (1, 2) gap" in line and "(2, 2) gap" in line
     assert "staged==fused" in line
 
 
@@ -141,9 +147,12 @@ def test_single_process_helpers(monkeypatch):
     assert mesh.shape == (2, 4) and not mesh.processes.any()
     with pytest.raises(ValueError, match="needs 8 devices"):
         D.hybrid_mesh((1, 4), (2, 1), devices=[CPU] * 4)
+    # one process and one slot: the step itself; more slots split the work
     step = TR.make_train_step(U.U2NET(small=True), TR.Adam())
-    assert TR.shard_train_step(step, TM.make_mesh((2, 2), devices=[CPU] * 4)) \
+    assert TR.shard_train_step(step, TM.make_mesh((1, 1), devices=[CPU])) \
         is step
+    assert TR.shard_train_step(step, TM.make_mesh((2, 2), devices=[CPU] * 4)) \
+        is not step
 
 
 def test_default_backend(monkeypatch):
