@@ -130,6 +130,14 @@ Phases, each raising (and exiting non-zero) on failure:
    step over (1, 2); on a host with two (four) cards (1, 2) ((1, 4)) a
    card a slot beside the one card's peak (else "not measured"); no port
    kernel launched.
+17. the measuring programs of bench/: `python -m
+   image_segmenter_tpu_torch.bench.bench` as a subprocess on the 4 x 2160
+   x 3840 batch (BENCH_REPS 2, no secondary model): exactly one stdout
+   line that parses, with every field, value > 0, the card's label and
+   phase 4's K1, K2 and K4 launches; profile_stages.profile once on phase
+   4's batch (every stage row with its device view, its K1-K4 launches in
+   one run equal to phase 4's, an idle share in [0, 1]); BASELINE configs
+   1, 2 and 5 with one rep each.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -152,10 +160,13 @@ import torch
 
 from image_segmenter_tpu_torch import cli as CLI
 from image_segmenter_tpu_torch import graft_entry as GRAFT
+from image_segmenter_tpu_torch.bench import baseline_configs as BASELINE
+from image_segmenter_tpu_torch.bench import bench as BENCH_HEAD
 from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
 from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
 from image_segmenter_tpu_torch.bench import micro_quantize as BENCH_QUANT
+from image_segmenter_tpu_torch.bench import profile_stages as PROFILE
 from image_segmenter_tpu_torch.compat import _perceptual as PERCEPTUAL
 from image_segmenter_tpu_torch.compat import color_simplify as CS
 from image_segmenter_tpu_torch.compat import grabcut as GRABCUT
@@ -271,10 +282,7 @@ def fail(msg: str):
 
 
 def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return BENCH_HEAD.card_label(torch.device("cuda", 0))
 
 
 def median_ms(fn, reps: int = REPS, inner: int = 1) -> float:
@@ -1271,16 +1279,9 @@ def run_micros(label: str) -> dict:
 # phase 9: the colour quantizers
 # ---------------------------------------------------------------------------
 
-def quantizer_frame(h: int, w: int, seed: int, mask: int = 0xFF) -> np.ndarray:
-    """Photo-like RGBA with a transparent corner, a semi-transparent band
-    and a dark patch; `mask` drops low colour bits (fewer unique colours)."""
-    rgb = photo_batch(1, h, w, seed)[0] & np.uint8(mask)
-    rgba = np.dstack([rgb, np.full((h, w), 255, np.uint8)])
-    rgba[: h // 5, : w // 4, 3] = 0
-    rgba[h // 3: h // 3 + h // 10, :, 3] = 100
-    dark = rgba[2 * h // 3: 5 * h // 6, w // 2: 5 * w // 6, :3]
-    dark //= 24
-    return np.ascontiguousarray(rgba)
+# photo-like RGBA with a transparent corner, a semi-transparent band and a
+# dark patch (BASELINE config 1's frame in the bench)
+quantizer_frame = BASELINE.quantizer_frame
 
 
 CUSTOM_PALETTE = np.array(
@@ -2547,6 +2548,95 @@ def run_row_split(label: str) -> None:
     print(f"[split] phase 16: {time.perf_counter() - t_phase:.1f} s ({label})")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the measuring programs
+# ---------------------------------------------------------------------------
+
+PROGRAM_REPS = 2              # the bench's calls a round, the profile's a row
+
+
+def _bench_line() -> tuple:
+    """The bench as a user runs it, at its default 4K batch: (stdout,
+    stderr)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_REPS=str(PROGRAM_REPS), BENCH_SECONDARY="none")
+    proc = subprocess.run(
+        [sys.executable, "-m", "image_segmenter_tpu_torch.bench.bench"],
+        env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"the bench exited with {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    return proc.stdout, proc.stderr
+
+
+def run_programs(label: str, slice_launches: dict) -> None:
+    """Phase 17: the bench, the stage profile and BASELINE configs 1, 2
+    and 5, each held to its contract."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out, err = _bench_line()
+    for line in err.splitlines():
+        if line.startswith("[bench]"):
+            print(f"[programs] {line}")
+    lines = out.splitlines()
+    if len(lines) != 1:
+        fail(f"the bench printed {len(lines)} stdout lines, not one: {out!r}")
+    rec = json.loads(lines[0])
+    missing = [k for k in BENCH_HEAD.FIELDS if k not in rec]
+    metric = f"pipeline_u2netp_matting_kmeans16_{H4K}x{W4K}_b{BATCH}"
+    if missing or rec["metric"] != metric or rec["content"] != "synthetic":
+        fail(f"the bench's line lacks {missing} or names another run: {rec}")
+    if not (rec["value"] > 0 and rec["device_resident_mp_s"] > 0):
+        fail(f"the bench's MP/s are not positive: {rec}")
+    if rec["card"] != label:
+        fail(f"the bench's card {rec['card']!r} is not {label!r}")
+    # its batch is not phase 4's, so the CG loop's K3 launches may differ
+    fixed = ("histogram", "precompute", "quantize")
+    if (any(rec["launches"][k] != slice_launches[k] for k in fixed)
+            or rec["launches"]["matvec"] < 1):
+        fail(f"the bench's launches {rec['launches']} are not phase 4's "
+             f"{slice_launches}")
+    print(f"[programs] bench: {rec['value']:.3f} MP/s streaming "
+          f"({rec['ms_per_batch']:.3f} ms a batch, rounds "
+          f"{rec['spread']['min']:.3f}-{rec['spread']['max']:.3f}), "
+          f"device-resident {rec['device_resident_mp_s']:.3f} MP/s "
+          f"({rec['device_resident_ms_per_batch']:.3f} ms, "
+          f"{rec['device_resident_spread']['min']:.3f}-"
+          f"{rec['device_resident_spread']['max']:.3f}), host-to-device "
+          f"{rec['h2d_gbs']} GB/s ({label})")
+    print(f"[programs] bench line: {lines[0]}")
+
+    with contextlib.redirect_stderr(sys.stdout):
+        res = PROFILE.profile("cuda", BATCH, H4K, W4K, reps=PROGRAM_REPS,
+                              imgs=photo_batch(BATCH, H4K, W4K, seed=0))
+        PROFILE.print_table(res)
+    if len(res["rows"]) != 13 or any(r["device_ops"] is None
+                                     for r in res["rows"]):
+        fail(f"profile_stages: rows without a device view: {res['rows']}")
+    if res["launches"] != slice_launches:
+        fail(f"profile_stages launched {res['launches']} in one run, phase 4 "
+             f"{slice_launches}")
+    for key in ("idle_share", "idle_share_unprofiled"):
+        if not 0.0 <= res[key] <= 1.0:
+            fail(f"profile_stages: {key} {res[key]} outside [0, 1]")
+    print(f"[programs] profile_stages {BATCH}x{H4K}x{W4K}: sum of stages "
+          f"{res['sum_stages_ms']:.3f} ms against the full run "
+          f"{res['full_ms']:.3f}; busy share {res['busy_share']:.4f}, idle "
+          f"share {res['idle_share']:.4f} (against the unprofiled run "
+          f"{res['idle_share_unprofiled']:.4f}); launches as phase 4's "
+          f"({label})")
+
+    for config in (BASELINE.config_1, BASELINE.config_2, BASELINE.config_5):
+        with contextlib.redirect_stderr(sys.stdout):
+            r = config(reps=1, device="cuda")
+        if not r["mp_s"] > 0:
+            fail(f"BASELINE config {r['config']}: {r}")
+        print(f"[programs] BASELINE config {r['config']} ({r['desc']}; "
+              f"{r['content']}): {r['mp_s']:.3f} MP/s, one rep ({label})")
+    print(f"[programs] phase 17: {time.perf_counter() - t_phase:.1f} s "
+          f"({label})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -2586,6 +2676,7 @@ def main() -> None:
     run_train(label)
     run_mesh(label)
     run_row_split(label)
+    run_programs(label, {k: launches[k] for k in MAIN_PATH})
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

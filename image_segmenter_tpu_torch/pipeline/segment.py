@@ -186,6 +186,38 @@ def _kmeans16_quantize(rgb: torch.Tensor, alpha_mask: torch.Tensor, k: int):
     return _kmeans16_map(rgb, alpha_mask, thr, centers_u8, k), centers_u8
 
 
+@torch.no_grad()
+def saliency_u8(module, small: torch.Tensor, mean: torch.Tensor,
+                std: torch.Tensor) -> torch.Tensor:
+    """The network on the resized (B, nh, nw, 3) u8 batch: max-scale,
+    normalise, forward, min-max per image -> (B, nh, nw) u8 mask."""
+    x = small.to(torch.float32)
+    x = x / torch.clamp_min(x.amax(dim=(1, 2, 3), keepdim=True), 1e-6)
+    x = (x - mean) / std
+    d0 = module(x.permute(0, 3, 1, 2))[0][:, 0]
+    mi = d0.amin(dim=(1, 2), keepdim=True)
+    ma = d0.amax(dim=(1, 2), keepdim=True)
+    m01 = (d0 - mi) / torch.clamp_min(ma - mi, 1e-12)
+    return torch.clamp(torch.floor(m01 * 255.0 + 0.5), 0, 255) \
+        .to(torch.uint8)
+
+
+def matting_solve_u8(rgb_s: torch.Tensor, trimap: torch.Tensor,
+                     a_s: torch.Tensor, cg_iters: int, mesh=None):
+    """The matting solve at the shrunk size: u8 rgb (B, h, w, 3), the
+    trimap and the u8 CNN alpha as the warm start -> (u8 alpha (B, h, w),
+    CG iterations (B,))."""
+    # rtol 1e-4 suffices for uint8 alpha (quantization step 4e-3);
+    # CG warm-started at the CNN alpha
+    alpha_m, _, iters, _ = solve_alpha_cf(
+        true_div(rgb_s.to(torch.float32), 255.0), trimap,
+        max_iter=cg_iters, rtol=1e-4,
+        x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True,
+        mesh=mesh)
+    return torch.clamp(torch.floor(alpha_m * 255.0 + 0.5), 0, 255) \
+        .to(torch.uint8), iters
+
+
 class StageFns(NamedTuple):
     """The three pipeline phases as batch functions."""
     cnn: Callable        # (module, imgs u8 BHW3) -> mask_small u8 (B,nh,nw)
@@ -205,18 +237,9 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
     std = torch.tensor(spec.std, dtype=torch.float32, device=dev)
     mdim = matting_dim
 
-    @torch.no_grad()
     def cnn_stage(module, imgs):
         small = RZ.resize_u8(imgs, (nh, nw), RZ.LANCZOS_PIL)
-        x = small.to(torch.float32)
-        x = x / torch.clamp_min(x.amax(dim=(1, 2, 3), keepdim=True), 1e-6)
-        x = (x - mean) / std
-        d0 = module(x.permute(0, 3, 1, 2))[0][:, 0]
-        mi = d0.amin(dim=(1, 2), keepdim=True)
-        ma = d0.amax(dim=(1, 2), keepdim=True)
-        m01 = (d0 - mi) / torch.clamp_min(ma - mi, 1e-12)
-        return torch.clamp(torch.floor(m01 * 255.0 + 0.5), 0, 255) \
-            .to(torch.uint8)
+        return saliency_u8(module, small, mean, std)
 
     def matting_stage(imgs, mask_small):
         h, w = imgs.shape[1:3]
@@ -231,15 +254,8 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
             sh, sw = h, w
             rgb_s, a_s = imgs, alpha0
         trimap = _trimap_device(a_s)
-        # rtol 1e-4 suffices for uint8 alpha (quantization step 4e-3);
-        # CG warm-started at the CNN alpha
-        alpha_m, _, _, _ = solve_alpha_cf(
-            true_div(rgb_s.to(torch.float32), 255.0), trimap,
-            max_iter=cg_iters, rtol=1e-4,
-            x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True,
-            mesh=solve_mesh)
-        alpha_m_u8 = torch.clamp(torch.floor(alpha_m * 255.0 + 0.5), 0, 255) \
-            .to(torch.uint8)
+        alpha_m_u8, _ = matting_solve_u8(rgb_s, trimap, a_s, cg_iters,
+                                         solve_mesh)
         if (sh, sw) != (h, w):
             alpha_full = RZ.resize_u8(alpha_m_u8, (h, w), RZ.LINEAR)
         else:

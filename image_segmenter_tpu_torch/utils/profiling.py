@@ -76,23 +76,46 @@ def capture_device_trace(fn, outdir: str):
     step with 40,000 device operations take 40 s to read back instead of
     12 (same device time and count, H100).
     """
+    return capture_device_timeline(fn, outdir)[0]
+
+
+def capture_device_timeline(fn, outdir: Optional[str] = None):
+    """`capture_device_trace`, and also every device operation's interval:
+    (ops, [(start_us, end_us), ...]). The Chrome trace is written only
+    where `outdir` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(outdir, exist_ok=True)
     activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
                   else ProfilerActivity.CPU]
     with profile(activities=activities) as prof:
         fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
+    if outdir is not None:
+        os.makedirs(outdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
 
     agg = {}
+    intervals = []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         tot, cnt = agg.get(e.name, (0.0, 0))
         agg[e.name] = (tot + float(e.time_range.elapsed_us()), cnt + 1)
-    return sorted(((n, t, c) for n, (t, c) in agg.items()),
-                  key=lambda x: -x[1])
+        intervals.append((float(e.time_range.start), float(e.time_range.end)))
+    ops = sorted(((n, t, c) for n, (t, c) in agg.items()), key=lambda x: -x[1])
+    return ops, intervals
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals: the time at least
+    one device operation ran. A sum would count twice what overlaps."""
+    total = 0.0
+    end = float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total

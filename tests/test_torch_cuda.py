@@ -807,3 +807,25 @@ def test_row_split_train_step_card_matches_one_slot(cuda, shape):
         state = new
     for k, v in state.params.items():
         assert (v - state0.params[k]).abs().max() > 0, k
+
+
+def test_bench_headline_on_the_card(cuda, monkeypatch, capsys):
+    """The bench at 1 x 540 x 960 on the card prints one stdout line that
+    parses, with every field, the card's label and the main path's
+    kernels launched."""
+    import json
+
+    from image_segmenter_tpu_torch.bench import bench as B
+
+    for k, v in {"BENCH_H": "540", "BENCH_W": "960", "BENCH_BATCH": "1",
+                 "BENCH_REPS": "1", "BENCH_SECONDARY": "none"}.items():
+        monkeypatch.setenv(k, v)
+    assert B.main([]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1, lines
+    rec = json.loads(lines[0])
+    assert set(B.FIELDS) <= set(rec)
+    assert rec["metric"] == "pipeline_u2netp_matting_kmeans16_540x960_b1"
+    assert rec["value"] > 0 and rec["device_resident_mp_s"] > 0
+    assert rec["card"] == B.card_label(cuda) and rec["h2d_gbs"]["pre"] > 0
+    assert all(n > 0 for n in rec["launches"].values()), rec["launches"]
