@@ -131,13 +131,26 @@ Phases, each raising (and exiting non-zero) on failure:
    card a slot beside the one card's peak (else "not measured"); no port
    kernel launched.
 17. the measuring programs of bench/: `python -m
-   image_segmenter_tpu_torch.bench.bench` as a subprocess on the 4 x 2160
-   x 3840 batch (BENCH_REPS 2, no secondary model): exactly one stdout
-   line that parses, with every field, value > 0, the card's label and
-   phase 4's K1, K2 and K4 launches; profile_stages.profile once on phase
-   4's batch (every stage row with its device view, its K1-K4 launches in
-   one run equal to phase 4's, an idle share in [0, 1]); BASELINE configs
-   1, 2 and 5 with one rep each.
+   image_segmenter_tpu_torch.bench.bench` as a subprocess at 4 x 2160 x
+   3840 (BENCH_REPS 2, no secondary model): exactly one stdout line that
+   parses, the photo mosaic's (`..._b4_photo`, content "photo"), and the
+   synthetic batch's record on stderr, each with every field, value > 0,
+   the card's label and phase 4's K1, K2 and K4 launches;
+   profile_stages.profile once on phase 4's batch (every stage row with
+   its device view, its K1-K4 launches in one run equal to phase 4's, an
+   idle share in [0, 1]); BASELINE configs 1, 2 and 5 with one rep each.
+18. the photo corpus (bench/corpus): its 14 PNGs decoded here against
+   the sha256s of MANIFEST.json; bench/corpus_iou.run_image on china,
+   flower, sky_01-up and a floor at 256 x 256 (mask IoU >= 0.99 against
+   the float64 oracle; the card's alpha within one step of the CPU's on
+   >= 0.999 of the pixels, equal alpha giving equal palettes);
+   Pipeline.run on a 1 x 1080 x 1920 tile of the bench's photo mosaic
+   against the CPU (phase 5's rule: alpha agreement >= 0.99, the same
+   bytes after the CNN; K1-K4 launched); each attribution micro
+   (chip_envelope, micro_u2netp_pack, micro_kmeans_restart,
+   micro_fit_sample, micro_hsv_fit, micro_dbscan) once at its default
+   shape (one warm and one timed call), one JSON line each with the card's
+   label.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -162,6 +175,14 @@ from image_segmenter_tpu_torch import cli as CLI
 from image_segmenter_tpu_torch import graft_entry as GRAFT
 from image_segmenter_tpu_torch.bench import baseline_configs as BASELINE
 from image_segmenter_tpu_torch.bench import bench as BENCH_HEAD
+from image_segmenter_tpu_torch.bench import chip_envelope as MICRO_ENVELOPE
+from image_segmenter_tpu_torch.bench import corpus as CORPUS
+from image_segmenter_tpu_torch.bench import corpus_iou as CORPUS_IOU
+from image_segmenter_tpu_torch.bench import micro_dbscan as MICRO_DBSCAN
+from image_segmenter_tpu_torch.bench import micro_fit_sample as MICRO_FIT_SAMPLE
+from image_segmenter_tpu_torch.bench import micro_hsv_fit as MICRO_HSV_FIT
+from image_segmenter_tpu_torch.bench import micro_kmeans_restart as MICRO_KMEANS
+from image_segmenter_tpu_torch.bench import micro_u2netp_pack as MICRO_U2NETP
 from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
 from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
@@ -1007,19 +1028,29 @@ def card_vs_cpu(label: str) -> None:
     must give identical alpha, masks, RGBA and palettes on both.
     """
     b, h, w = CARD_VS_CPU
-    img = photo_batch(b, h, w, seed=1)
+    pipeline_card_vs_cpu(photo_batch(b, h, w, seed=1), "card-vs-cpu", label)
+
+
+def pipeline_card_vs_cpu(img: np.ndarray, tag: str, label: str) -> dict:
+    """Phase 5's rule on `img`: the full runs agree on >= 0.99 of the
+    alpha, and from the card's CNN mask the stages give the same bytes;
+    returns the card run's K1-K4 launches."""
+    b, h, w = img.shape[:3]
     pipes = {dev: Pipeline(model="u2netp", k=16, device=dev)
              for dev in ("cuda", "cpu")}
+    zero_counts()
     outs = {dev: [t.cpu() for t in pipe.run(img)]
             for dev, pipe in pipes.items()}
+    launches = {k: v for k, v in read_counts().items() if k in MAIN_PATH}
     (g_rgba, g_alpha, g_pal), (c_rgba, c_alpha, c_pal) = outs["cuda"], outs["cpu"]
     agree = float((g_rgba[..., 3] == c_rgba[..., 3]).double().mean())
     refined = float((g_alpha == c_alpha).double().mean())
-    print(f"[card-vs-cpu] Pipeline {b}x{h}x{w}: rgba alpha agreement "
+    print(f"[{tag}] Pipeline {b}x{h}x{w}: rgba alpha agreement "
           f"{agree:.6f}; refined u8 alpha exact {refined:.6f}; palettes "
-          f"identical: {bool(torch.equal(g_pal, c_pal))} ({label})")
+          f"identical: {bool(torch.equal(g_pal, c_pal))}; card launches "
+          f"{launches} ({label})")
     if agree < 0.99:
-        fail(f"card-vs-CPU alpha agreement {agree} < 0.99")
+        fail(f"{tag}: card-vs-CPU alpha agreement {agree} < 0.99")
 
     x = torch.from_numpy(img)
     card = pipes["cuda"]
@@ -1031,10 +1062,12 @@ def card_vs_cpu(label: str) -> None:
         res[dev] = [t.cpu() for t in (alpha, sharp, rgba, pal)]
     same = {name: torch.equal(g, c) for name, g, c in
             zip(("alpha", "sharp", "rgba", "palettes"), res["cuda"], res["cpu"])}
-    print(f"[card-vs-cpu] matting + quantize from the card's CNN mask, "
+    print(f"[{tag}] matting + quantize from the card's CNN mask, "
           f"identical on card and CPU: {same}")
     if not all(same.values()):
-        fail(f"card and CPU stages differ from the same CNN mask: {same}")
+        fail(f"{tag}: card and CPU stages differ from the same CNN mask: "
+             f"{same}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2569,6 +2602,26 @@ def _bench_line() -> tuple:
     return proc.stdout, proc.stderr
 
 
+def check_bench_record(rec: dict, content: str, metric: str, label: str,
+                       slice_launches: dict) -> None:
+    """A bench record holds every field, names its run and its card, has
+    positive rates and phase 4's K1, K2 and K4 launches (its batch is not
+    phase 4's, so the CG's K3 launches may differ)."""
+    missing = [k for k in BENCH_HEAD.FIELDS if k not in rec]
+    if missing or rec["metric"] != metric or rec["content"] != content:
+        fail(f"a bench record lacks {missing} or names another run than "
+             f"{metric} ({content}): {rec}")
+    if not (rec["value"] > 0 and rec["device_resident_mp_s"] > 0):
+        fail(f"the bench's MP/s are not positive: {rec}")
+    if rec["card"] != label:
+        fail(f"the bench's card {rec['card']!r} is not {label!r}")
+    fixed = ("histogram", "precompute", "quantize")
+    if (any(rec["launches"][k] != slice_launches[k] for k in fixed)
+            or rec["launches"]["matvec"] < 1):
+        fail(f"the bench's launches {rec['launches']} ({content}) are not "
+             f"phase 4's {slice_launches}")
+
+
 def run_programs(label: str, slice_launches: dict) -> None:
     """Phase 17: the bench, the stage profile and BASELINE configs 1, 2
     and 5, each held to its contract."""
@@ -2582,21 +2635,20 @@ def run_programs(label: str, slice_launches: dict) -> None:
     if len(lines) != 1:
         fail(f"the bench printed {len(lines)} stdout lines, not one: {out!r}")
     rec = json.loads(lines[0])
-    missing = [k for k in BENCH_HEAD.FIELDS if k not in rec]
     metric = f"pipeline_u2netp_matting_kmeans16_{H4K}x{W4K}_b{BATCH}"
-    if missing or rec["metric"] != metric or rec["content"] != "synthetic":
-        fail(f"the bench's line lacks {missing} or names another run: {rec}")
-    if not (rec["value"] > 0 and rec["device_resident_mp_s"] > 0):
-        fail(f"the bench's MP/s are not positive: {rec}")
-    if rec["card"] != label:
-        fail(f"the bench's card {rec['card']!r} is not {label!r}")
-    # its batch is not phase 4's, so the CG loop's K3 launches may differ
-    fixed = ("histogram", "precompute", "quantize")
-    if (any(rec["launches"][k] != slice_launches[k] for k in fixed)
-            or rec["launches"]["matvec"] < 1):
-        fail(f"the bench's launches {rec['launches']} are not phase 4's "
-             f"{slice_launches}")
-    print(f"[programs] bench: {rec['value']:.3f} MP/s streaming "
+    synthetic = [json.loads(line.split(" ", 2)[2]) for line in err.splitlines()
+                 if line.startswith("[bench] synthetic {")]
+    if len(synthetic) != 1:
+        fail(f"the bench's stderr holds {len(synthetic)} synthetic records")
+    for r, content, name in ((rec, "photo", metric + "_photo"),
+                             (synthetic[0], "synthetic", metric)):
+        check_bench_record(r, content, name, label, slice_launches)
+    print(f"[programs] bench, synthetic batch (stderr): "
+          f"{synthetic[0]['value']:.3f} MP/s streaming, device-resident "
+          f"{synthetic[0]['device_resident_mp_s']:.3f} MP/s, launches "
+          f"{synthetic[0]['launches']} ({label})")
+    print(f"[programs] bench, photo mosaic (stdout): {rec['value']:.3f} MP/s "
+          f"streaming "
           f"({rec['ms_per_batch']:.3f} ms a batch, rounds "
           f"{rec['spread']['min']:.3f}-{rec['spread']['max']:.3f}), "
           f"device-resident {rec['device_resident_mp_s']:.3f} MP/s "
@@ -2634,6 +2686,85 @@ def run_programs(label: str, slice_launches: dict) -> None:
         print(f"[programs] BASELINE config {r['config']} ({r['desc']}; "
               f"{r['content']}): {r['mp_s']:.3f} MP/s, one rep ({label})")
     print(f"[programs] phase 17: {time.perf_counter() - t_phase:.1f} s "
+          f"({label})")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the photo corpus and the programs that read it
+# ---------------------------------------------------------------------------
+
+PHOTO_IOU = ("china", "flower", "sky_01-up", "style_01-floor_blue_d")
+PHOTO_SIZE = 256              # corpus_iou's default size
+PHOTO_TILE = (1, 1080, 1920)  # the headline mosaic's first image, cropped
+IOU_FLOOR = CORPUS_IOU.IOU_FLOOR  # BASELINE.json's acceptance
+MICRO_REPS = 1                # one warm and one timed call: the phase's
+                              # budget; the micros' own default is 5
+MICROS = (MICRO_ENVELOPE, MICRO_U2NETP, MICRO_KMEANS, MICRO_FIT_SAMPLE,
+          MICRO_HSV_FIT, MICRO_DBSCAN)
+
+
+def _check_photo_record(rec: dict) -> None:
+    """corpus_iou's acceptance and its card-against-CPU agreement (phase
+    7's rule: at most one step, >= 0.999 of the alpha equal; equal alpha
+    bytes quantize to equal palettes)."""
+    name = rec["image"]
+    if rec["mask_iou"] < IOU_FLOOR:
+        fail(f"corpus_iou {name}: mask IoU {rec['mask_iou']} against the "
+             f"float64 oracle < {IOU_FLOOR}")
+    if (rec["card_cpu_alpha_max_step"] > 1
+            or rec["card_cpu_alpha_equal"] < 0.999
+            or rec["card_cpu_mask_iou"] < IOU_FLOOR):
+        fail(f"corpus_iou {name}: the card's alpha differs from the CPU's: "
+             f"{rec}")
+    if rec["card_cpu_alpha_equal"] == 1.0 and not rec["card_cpu_palette_equal"]:
+        fail(f"corpus_iou {name}: equal alpha, other palettes on the card "
+             f"and the CPU")
+
+
+def run_photos(label: str) -> None:
+    """Phase 18: the corpus's PNGs against their manifest, corpus_iou on
+    four photos, the pipeline on a photo tile against the CPU, and each
+    attribution micro once at its default shape."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    entries = CORPUS.manifest()
+    photos = [CORPUS.read_photo(e) for e in entries]  # raises on a mismatch
+    if len(photos) != 14:
+        fail(f"the corpus holds {len(photos)} photos, not 14")
+    print(f"[photos] corpus: {len(photos)} PNGs decoded here, shapes and "
+          f"sha256s as MANIFEST.json's, {sum(p.nbytes for p in photos)} RGB "
+          f"bytes, {time.perf_counter() - t0:.3f} s")
+
+    corpus = dict(CORPUS.load_corpus(size=PHOTO_SIZE))
+    for name in PHOTO_IOU:
+        with contextlib.redirect_stdout(sys.stderr):
+            rec = CORPUS_IOU.run_image(name, corpus[name], device="cuda")
+        print(f"[photos] corpus_iou {json.dumps(rec)}")
+        _check_photo_record(rec)
+    print(f"[photos] corpus_iou on {len(PHOTO_IOU)} photos at "
+          f"{PHOTO_SIZE}x{PHOTO_SIZE}: mask IoU >= {IOU_FLOOR} against the "
+          f"float64 oracle, the card as the CPU ({label})")
+
+    img = BENCH_HEAD.photo_batch(*PHOTO_TILE)
+    launches = pipeline_card_vs_cpu(img, "photos", label)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the photo tile's run launched no {name}")
+
+    for mod in MICROS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--reps", str(MICRO_REPS)], device="cuda")
+        lines = buf.getvalue().splitlines()
+        if len(lines) != 1:
+            fail(f"{mod.__name__} printed {len(lines)} lines, not one")
+        rec = json.loads(lines[0])
+        if rec["card"] != label or not rec["device"].startswith("cuda"):
+            fail(f"{mod.__name__} ran on {rec['device']} ({rec['card']})")
+        print(f"[photos] {mod.__name__.rsplit('.', 1)[1]} "
+              f"({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    print(f"[photos] phase 18: {time.perf_counter() - t_phase:.1f} s "
           f"({label})")
 
 
@@ -2677,6 +2808,7 @@ def main() -> None:
     run_mesh(label)
     run_row_split(label)
     run_programs(label, {k: launches[k] for k in MAIN_PATH})
+    run_photos(label)
 
     print(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -10,7 +10,7 @@ a function that takes its sizes (BASELINE's by default) and `device`:
 3. perceptual, adaptive_distance and hsv_clustering (k 8) at 2160 x 3840,
    with the stage stamps (`LAST_SOLVE_INFO`) of the last two;
 4. apply_grabcut (config 4's rect, 10 iterations) and
-   refine_alpha_portrait on three 1024 x 768 portraits, with both
+   refine_alpha_portrait on three 1024 x 768 photo crops, with both
    solvers' stamps;
 5. the main path, `Pipeline(model="u2netp", k=16).run` on a 4 x 2160 x
    3840 batch given as host numpy (streaming).
@@ -25,10 +25,11 @@ given with `--working-image PATH` (read with Pillow), otherwise
 `quantizer_frame` (photo-like RGBA with a transparent corner, a semi-
 transparent band and a dark patch; chip_smoke phase 9's). Configs 2, 3
 and 5 take bench.py's synthetic image (`bench.synthetic_batch`), config
-2 seeds 0-3. Config 4 takes seeded portrait scenes
-(`utils/seeds.portrait_scene`, seeds 21-23, chip_smoke phase 10's), the
-refine's alpha the drawn subject blurred by a Gaussian of sigma 1.5: the
-JAX script's corpus crops need Pillow and photo files.
+2 seeds 0-3. Config 4 takes the JAX script's crops: the first three
+photos of `bench/corpus.load_corpus(size=1024)` (china, flower, sky_01-up;
+the working image third where `--working-image` gives it, as in the JAX
+run), columns 128-895 of each, the refine's alpha
+`synthetic_alpha_init` of the crop (made before the timed calls).
 
 `main` writes the record, with the card's name and power limit, to
 `baseline_configs.json` beside this file and prints one stdout line,
@@ -50,12 +51,14 @@ import torch
 
 from image_segmenter_tpu_torch.bench.bench import card_label, h2d_gbs, \
     synthetic_batch, timed_calls
+from image_segmenter_tpu_torch.bench.corpus import load_corpus, \
+    read_working_image, synthetic_alpha_init
 from image_segmenter_tpu_torch.bench.micro_precompute_hist import photo_batch
 from image_segmenter_tpu_torch.utils.backend import resolve_device
 
 REPS = int(os.environ.get("BENCH_CFG_REPS", 3))
 OUT = Path(__file__).resolve().parent / "baseline_configs.json"
-PORTRAIT_SEEDS = (21, 22, 23)
+CONFIG4_PHOTOS = 3
 
 
 def _log(msg: str) -> None:
@@ -87,14 +90,6 @@ def _timed(fn, dev, reps: int) -> dict:
 def _stamps(info: dict) -> dict:
     return {k: v for k, v in info.items()
             if isinstance(v, (int, float, str, bool, list))}
-
-
-def read_rgb(path) -> np.ndarray:
-    """An image file as (H, W, 3) u8 RGB, read with Pillow."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
 
 
 def config_1(h: int = 1024, w: int = 1024, reps: int = REPS, device="cuda",
@@ -174,56 +169,57 @@ def config_3(h: int = 2160, w: int = 3840, reps: int = REPS,
             "mp_s": 3 * mp / total}
 
 
-def portrait_alpha(subject: np.ndarray) -> np.ndarray:
-    """A segmentation net's soft alpha for a drawn subject: the mask
-    blurred by a Gaussian of sigma 1.5, as u8."""
-    from scipy.ndimage import gaussian_filter
+def photo_crops(size: int = 1024, n: int = CONFIG4_PHOTOS,
+                working_image=None) -> list:
+    """The JAX config 4's portrait crops: [(name, (size, 3 size / 4, 3)
+    u8 RGB)], columns size / 8 to 7 size / 8 of the corpus's first n
+    photos at (size, size)."""
+    return [(name, np.ascontiguousarray(rgb[:, size // 8: size - size // 8]))
+            for name, rgb in load_corpus(size=size, limit=n,
+                                         working_image=working_image)]
 
-    soft = gaussian_filter(subject.astype(np.float64) * 255.0, 1.5)
-    return np.clip(soft, 0, 255).astype(np.uint8)
 
-
-def config_4(h: int = 1024, w: int = 768, iterations: int = 10,
-             seeds=PORTRAIT_SEEDS, reps: int = REPS, device="cuda") -> dict:
-    """apply_grabcut (rect, `iterations`) and refine_alpha_portrait on
-    seeded portraits."""
+def config_4(size: int = 1024, n: int = CONFIG4_PHOTOS, iterations: int = 10,
+             reps: int = REPS, device="cuda", working_image=None) -> dict:
+    """apply_grabcut (rect, `iterations`) and refine_alpha_portrait on the
+    corpus's portrait crops."""
     from image_segmenter_tpu_torch.compat.grabcut import apply_grabcut
     from image_segmenter_tpu_torch.compat.matting_refine import \
         refine_alpha_portrait
     from image_segmenter_tpu_torch.solvers import grabcut as GC
     from image_segmenter_tpu_torch.solvers import matting as MAT
-    from image_segmenter_tpu_torch.utils.seeds import config4_rect, \
-        portrait_scene
+    from image_segmenter_tpu_torch.utils.seeds import config4_rect
 
     dev = resolve_device(device)
-    scenes = [portrait_scene(h, w, s) for s in seeds]
+    crops = photo_crops(size, n, working_image)
+    h, w = crops[0][1].shape[:2]
     rect = config4_rect(h, w)
-    mp = len(scenes) * h * w / 1e6
+    mp = len(crops) * h * w / 1e6
 
     def grabcut():
-        for bgr, _ in scenes:
-            apply_grabcut(bgr, rect_xywh=rect, iterations=iterations,
-                          device=dev)
+        for _, rgb in crops:
+            apply_grabcut(np.ascontiguousarray(rgb[..., ::-1]),
+                          rect_xywh=rect, iterations=iterations, device=dev)
 
-    alphas = [portrait_alpha(subject) for _, subject in scenes]
+    alphas = [synthetic_alpha_init(rgb) for _, rgb in crops]
 
     def matting():
-        for (bgr, _), a in zip(scenes, alphas):
-            refine_alpha_portrait(np.ascontiguousarray(bgr[..., ::-1]), a,
-                                  None, device=dev)
+        for (_, rgb), a in zip(crops, alphas):
+            refine_alpha_portrait(rgb, a, None, device=dev)
 
     t_gc = _timed(grabcut, dev, reps)
     gc_info = _stamps(GC.LAST_SOLVE_INFO)
-    _log(f"config 4: grabcut x{len(scenes)} {t_gc['s'] * 1e3:.3f} ms "
+    _log(f"config 4: grabcut x{len(crops)} {t_gc['s'] * 1e3:.3f} ms "
          f"(last solve: {gc_info})")
     t_mt = _timed(matting, dev, reps)
     mt_info = _stamps(MAT.LAST_SOLVE_INFO)
-    _log(f"config 4: matting x{len(scenes)} {t_mt['s'] * 1e3:.3f} ms "
+    _log(f"config 4: matting x{len(crops)} {t_mt['s'] * 1e3:.3f} ms "
          f"(last solve: {mt_info})")
     return {"config": 4, "desc": f"grabcut({iterations} iterations)+matting, "
-            f"{len(scenes)} portraits {h}x{w}",
-            "content": f"utils/seeds.portrait_scene seeds {list(seeds)}; "
-            "refine alpha: the subject blurred, sigma 1.5",
+            f"{len(crops)} portrait crops {h}x{w}",
+            "content": f"corpus photos at {size}, columns {size // 8}-"
+            f"{size - size // 8 - 1}; refine alpha: synthetic_alpha_init",
+            "crops": [name for name, _ in crops],
             "mp_total": mp,
             "grabcut": {"s": t_gc["s"], "times_s": t_gc["times_s"],
                         "mp_s": mp / t_gc["s"], "last_solve_info": gc_info},
@@ -260,8 +256,9 @@ def main(argv=None, device="cuda") -> int:
         description="The five BASELINE configs; BENCH_CFG_REPS sets the "
                     "timed calls of each.")
     ap.add_argument("--working-image", metavar="PATH",
-                    help="config 1's image: the reference app's "
-                         "app/working_image_cleaned.bmp (needs Pillow)")
+                    help="config 1's image and config 4's third crop: the "
+                         "reference app's app/working_image_cleaned.bmp "
+                         "(needs Pillow)")
     args = ap.parse_args(argv)
     dev = resolve_device(device)
     with contextlib.redirect_stdout(sys.stderr):
@@ -270,10 +267,12 @@ def main(argv=None, device="cuda") -> int:
         h2d_pre = h2d_gbs(dev)
         t0 = time.perf_counter()
         first = {} if args.working_image is None else {
-            "image": read_rgb(args.working_image),
+            "image": read_working_image(args.working_image),
             "image_name": os.path.basename(args.working_image)}
-        configs = [config_1(device=dev, **first)]
-        configs += [cfg(device=dev) for cfg in CONFIGS[1:]]
+        configs = [config_1(device=dev, **first), config_2(device=dev),
+                   config_3(device=dev),
+                   config_4(device=dev, working_image=args.working_image),
+                   config_5(device=dev)]
         elapsed = time.perf_counter() - t0
         h2d_post = h2d_gbs(dev)
         out = {"device": str(dev), "card": card,

@@ -4,24 +4,31 @@
 
 Counterpart of the JAX package's root bench.py. Runs
 `Pipeline(model=BENCH_MODEL, k=16).run` (background removal -> matting
-refine -> 16-colour k-means) on a synthetic batch and prints exactly ONE
-line on stdout, the last, a JSON object:
+refine -> 16-colour k-means) on a batch of real photos and prints exactly
+ONE line on stdout, the last, a JSON object:
 
-    {"metric": "pipeline_u2netp_matting_kmeans16_2160x3840_b4",
+    {"metric": "pipeline_u2netp_matting_kmeans16_2160x3840_b4_photo",
      "value": MP/s streaming, "unit": "MP/sec/chip", "vs_baseline": value / 50,
      "ms_per_batch": ..., "spread": {"min": ..., "max": ...},
      "device_resident_mp_s": ..., "device_resident_ms_per_batch": ...,
      "device_resident_spread": {...}, "rounds": 5, "reps": ...,
-     "content": "synthetic", "h2d_gbs": {"pre": ..., "post": ...},
+     "content": "photo", "h2d_gbs": {"pre": ..., "post": ...},
      "card": "<name>, <power limit>", "device": "cuda", "launches": {...}}
 
 Everything else goes to stderr. Settings, the JAX bench's names and
 defaults: BENCH_H 2160, BENCH_W 3840, BENCH_BATCH 4, BENCH_REPS 5,
-BENCH_MODEL u2netp, BENCH_SECONDARY isnet-general-use ("none" skips it).
+BENCH_MODEL u2netp, BENCH_SECONDARY isnet-general-use ("none" skips it),
+BENCH_PHOTO 1.
 
-- Content: bench.py's synthetic batch (`synthetic_batch`), one seeded
-  gradient-plus-noise image broadcast to the batch. The JAX bench's photo
-  mosaic needs Pillow and photo files that a card machine does not have.
+- Content, as the JAX bench's: the headline is the photo mosaic
+  (`photo_batch`: the corpus of `bench/corpus.py` at 1080 x 1080 tiled by
+  the JAX rule, BASELINE config 5's content). It runs first, so its cold
+  stamps are cold. The synthetic batch (`synthetic_batch`, one seeded
+  gradient-plus-noise image broadcast) follows with max(2, BENCH_REPS // 2)
+  calls a round, its record on stderr as `[bench] synthetic {...}`.
+  BENCH_PHOTO=0 runs the synthetic batch alone, on stdout, with
+  `"content": "synthetic"` and the metric without `_photo`. A missing or
+  corrupt corpus file raises: no run falls back to other content.
 - Cold stamps (stderr): the kernels' build, or the load of the library a
   build left, and the first call.
 - Streaming (`value`): `ROUNDS` rounds of BENCH_REPS calls, each call
@@ -34,8 +41,9 @@ BENCH_MODEL u2netp, BENCH_SECONDARY isnet-general-use ("none" skips it).
 - `launches`: each main-path kernel's launches in one warm run (K1
   histogram, K2 precompute, K3 matvec, K4 quantize); zero on the CPU,
   where the plain versions run.
-- Secondary model: its record on stderr after the headline is printed;
-  a failure there still exits non-zero.
+- Secondary model: on the synthetic batch, as the JAX bench's; its
+  record on stderr after the headline is printed; a failure there still
+  exits non-zero.
 
 The bench runs on the card unless `main(device="cpu")` is asked for, and
 raises without a card; it never falls back to the CPU.
@@ -56,6 +64,7 @@ import traceback
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.bench.corpus import load_corpus
 from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
@@ -66,7 +75,7 @@ ROUNDS = 5
 BASELINE_MP_S = 50.0          # BASELINE.md's target, MP/s a chip
 H2D_MB = 24
 H2D_TRIES = 4
-CONTENT = "synthetic"
+TILE = 1080                   # the photo mosaic's tile side
 # the main path's kernels and their launch counters
 MAIN_PATH_KERNELS = {"histogram": KH, "precompute": KP, "matvec": KMV,
                      "quantize": KQ}
@@ -92,6 +101,24 @@ def synthetic_batch(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
     ], axis=-1)
     img = np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
     return np.broadcast_to(img, (b, h, w, 3)).copy()
+
+
+def photo_batch(b: int, h: int, w: int) -> np.ndarray:
+    """root bench.py's photo mosaic: (b, h, w, 3) u8, image i tiled from
+    the corpus at TILE x TILE row by row, tile (i + r * cols + c) % (the
+    number of photos) at row r and column c, cropped to (h, w)."""
+    cols, rows = -(-w // TILE), -(-h // TILE)
+    # the highest index is b - 1 + rows * cols - 1: below the corpus's
+    # length the modulus takes nothing, past it every photo is needed
+    tiles = load_corpus(size=TILE, limit=b + rows * cols - 1)
+    out = np.empty((b, h, w, 3), np.uint8)
+    for i in range(b):
+        canvas = np.concatenate([
+            np.concatenate([tiles[(i + r * cols + c) % len(tiles)][1]
+                            for c in range(cols)], axis=1)
+            for r in range(rows)], axis=0)
+        out[i] = canvas[:h, :w]
+    return out
 
 
 def card_label(dev: torch.device) -> str:
@@ -176,10 +203,11 @@ def _rounds(one_round, rounds: int) -> dict:
 
 
 def measure(pipe, model: str, imgs: np.ndarray, reps: int,
-            rounds: int = ROUNDS, tag: str = "") -> dict:
+            rounds: int = ROUNDS, tag: str = "",
+            content: str = "synthetic") -> dict:
     """Cold call, warm counted call, streaming and device-resident rounds
-    of `pipe` (of `model`) on `imgs`: the record without the run's
-    `h2d_gbs` and `card`."""
+    of `pipe` (of `model`) on `imgs` (`content`: "photo" adds `_photo` to
+    the metric): the record without the run's `h2d_gbs` and `card`."""
     dev = pipe.device
     b, h, w = imgs.shape[:3]
     mp = b * h * w / 1e6
@@ -206,8 +234,9 @@ def measure(pipe, model: str, imgs: np.ndarray, reps: int,
         return t * 1e3
 
     value = mp / stream["median"]
+    suffix = "_photo" if content == "photo" else ""
     return {
-        "metric": f"pipeline_{model}_matting_kmeans16_{h}x{w}_b{b}",
+        "metric": f"pipeline_{model}_matting_kmeans16_{h}x{w}_b{b}{suffix}",
         "value": value,
         "unit": "MP/sec/chip",
         "vs_baseline": value / BASELINE_MP_S,
@@ -219,7 +248,7 @@ def measure(pipe, model: str, imgs: np.ndarray, reps: int,
                                    "max": ms(resident["max"])},
         "rounds": rounds,
         "reps": reps,
-        "content": CONTENT,
+        "content": content,
         "device": str(dev),
         "launches": launches,
     }
@@ -232,14 +261,16 @@ def settings() -> dict:
             "batch": int(env.get("BENCH_BATCH", 4)),
             "reps": int(env.get("BENCH_REPS", 5)),
             "model": env.get("BENCH_MODEL", "u2netp"),
-            "secondary": env.get("BENCH_SECONDARY", "isnet-general-use")}
+            "secondary": env.get("BENCH_SECONDARY", "isnet-general-use"),
+            "photo": env.get("BENCH_PHOTO", "1") != "0"}
 
 
 def main(argv=None, device="cuda") -> int:
     argparse.ArgumentParser(
         prog="python -m image_segmenter_tpu_torch.bench.bench",
         description="The main path's MP/s; set BENCH_H, BENCH_W, "
-                    "BENCH_BATCH, BENCH_REPS, BENCH_MODEL, BENCH_SECONDARY."
+                    "BENCH_BATCH, BENCH_REPS, BENCH_MODEL, BENCH_SECONDARY, "
+                    "BENCH_PHOTO."
     ).parse_args(argv)
     from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 
@@ -258,15 +289,29 @@ def main(argv=None, device="cuda") -> int:
                 f"{time.perf_counter() - t0:.3f} s")
         h2d_pre = h2d_gbs(dev)
         log(f"host-to-device (before the runs): {h2d_pre} GB/s")
-        imgs = synthetic_batch(cfg["batch"], cfg["h"], cfg["w"])
+        b, h, w = cfg["batch"], cfg["h"], cfg["w"]
         pipe = Pipeline(model=cfg["model"], k=16, device=dev)
-        rec = measure(pipe, cfg["model"], imgs, cfg["reps"])
+        recs = []
+        if cfg["photo"]:
+            t0 = time.perf_counter()
+            photos = photo_batch(b, h, w)
+            log(f"photo mosaic {b}x{h}x{w} from the corpus: "
+                f"{time.perf_counter() - t0:.3f} s")
+            recs.append(measure(pipe, cfg["model"], photos, cfg["reps"],
+                                tag="photo: ", content="photo"))
+            del photos
+        imgs = synthetic_batch(b, h, w)
+        reps = max(2, cfg["reps"] // 2) if recs else cfg["reps"]
+        recs.append(measure(pipe, cfg["model"], imgs, reps,
+                            tag="synthetic: " if recs else ""))
         del pipe
         h2d_post = h2d_gbs(dev)
         log(f"host-to-device (after the runs): {h2d_post} GB/s")
-        rec["h2d_gbs"] = {"pre": h2d_pre, "post": h2d_post}
-        rec["card"] = card
-        rec = {k: rec[k] for k in FIELDS}
+        for r in recs:
+            r.update(h2d_gbs={"pre": h2d_pre, "post": h2d_post}, card=card)
+        rec, *rest = [{k: r[k] for k in FIELDS} for r in recs]
+        for r in rest:
+            log(f"synthetic {json.dumps(r)}")
     # the headline goes out before the secondary model can fail
     print(json.dumps(rec), flush=True)
 

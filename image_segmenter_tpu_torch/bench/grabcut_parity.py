@@ -7,10 +7,9 @@ Counterpart of the JAX package's bench/grabcut_parity.py, on the port's
 `compat.grabcut.apply_grabcut(device="cpu")`. The same cases: 12
 structured scenes (`scene`, seeds 1000-1011, noise 6-20) with the rect
 (8, 8, w - 16, h - 16) and with a mask init, plus the real-photo corpus
-with the rect, 10 iterations each, where Pillow, sklearn's sample images
-and labmaze's textures are installed (`load_corpus`, the same photos as
-tests/helpers/corpus.py; the reference app's working image joins them
-where `--working-image` gives its path). For every case:
+with the rect, 10 iterations each (`bench/corpus.load_corpus` at 96, the
+photos and bytes of tests/helpers/corpus.py; the reference app's working
+image joins them where `--working-image` gives its path). For every case:
 
 - the foreground IoU against cv2;
 - the GrabCut energy of both masks under one common model (GMMs fit to
@@ -31,10 +30,7 @@ Needs cv2; a side program run by hand, not a test (minutes on the CPU).
 from __future__ import annotations
 
 import argparse
-import glob
-import importlib.util
 import json
-import os
 import sys
 import time
 from pathlib import Path
@@ -42,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.bench.corpus import load_corpus
 from image_segmenter_tpu_torch.compat.grabcut import apply_grabcut
 from image_segmenter_tpu_torch.solvers import grabcut as GC
 
@@ -101,54 +98,6 @@ def mask_init(blob: np.ndarray) -> np.ndarray:
     cy, cx = h // 2, w // 2
     init[cy - 3:cy + 3, cx - 3:cx + 3] = GC.FGD
     return init
-
-
-def _center_square(img: np.ndarray) -> np.ndarray:
-    h, w = img.shape[:2]
-    s = min(h, w)
-    y0, x0 = (h - s) // 2, (w - s) // 2
-    return img[y0:y0 + s, x0:x0 + s]
-
-
-def load_corpus(size: int = 96, working_image=None) -> list:
-    """[(name, RGB u8 (size, size, 3))] of the real photos installed:
-    sklearn's two sample photos, the working image at the path
-    `working_image` where one is given, and labmaze's sky and floor
-    textures, centre-cropped square and resized by Pillow's bilinear
-    filter; [] where Pillow is missing. tests/helpers/corpus.py's photos,
-    in its order."""
-    try:
-        from PIL import Image
-    except ImportError:
-        return []
-    entries = []
-    try:
-        from sklearn.datasets import load_sample_image
-    except ImportError:
-        pass
-    else:
-        for n in ("china.jpg", "flower.jpg"):
-            entries.append((n.split(".")[0], load_sample_image(n)))
-    if working_image is not None:
-        with Image.open(working_image) as im:
-            entries.append(("working_image", np.asarray(im.convert("RGB"))))
-    spec = importlib.util.find_spec("labmaze")
-    if spec is not None and spec.submodule_search_locations:
-        assets = os.path.join(list(spec.submodule_search_locations)[0],
-                              "assets")
-        for pat in ("sky_*/up.png", "sky_*/ft.png", "style_0*/floor_*_d.png"):
-            for p in sorted(glob.glob(os.path.join(assets, pat))):
-                name = "-".join(p.split(os.sep)[-2:]).rsplit(".", 1)[0]
-                with Image.open(p) as im:
-                    entries.append((name, np.asarray(im.convert("RGB"))))
-                if pat.startswith("style") and sum(
-                        1 for e in entries if e[0].startswith("style")) >= 6:
-                    break
-    out = []
-    for name, rgb in entries:
-        sq = Image.fromarray(_center_square(np.ascontiguousarray(rgb)))
-        out.append((name, np.asarray(sq.resize((size, size), Image.BILINEAR))))
-    return out
 
 
 def energy(img_bgr: np.ndarray, fg: np.ndarray) -> float:
@@ -235,7 +184,7 @@ def cases(n_scenes: int = N_SCENES, working_image=None):
         img, blob, noise = scene_case(s)
         yield s, "rect", img, rect_of(img), None, {"noise": round(noise, 1)}
         yield s, "mask", img, None, mask_init(blob), {"noise": round(noise, 1)}
-    for name, rgb in load_corpus(96, working_image):
+    for name, rgb in load_corpus(96, working_image=working_image):
         img = np.ascontiguousarray(rgb[:, :, ::-1])
         yield name, "photo-rect", img, rect_of(img), None, {}
 

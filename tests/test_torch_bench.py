@@ -4,9 +4,10 @@ small sizes, and their inputs against the JAX package's programs.
 
 - `bench.synthetic_batch` equals root bench/baseline_configs._photo (the
   recipe of root bench.py:75-85) broadcast to the batch, byte for byte;
-- `bench.main(device="cpu")` prints exactly one stdout line, which parses
-  and holds every field; a bench round's output is `Pipeline.run`'s, bit
-  for bit; without a card and without device="cpu" it raises;
+- `bench.main(device="cpu")` prints exactly one stdout line, the photo
+  run, which parses and holds every field, and the synthetic run on
+  stderr; a bench round's output is `Pipeline.run`'s, bit for bit;
+  without a card and without device="cpu" it raises;
 - `profile_stages.profile` returns every stage row, and its chained steps
   give the full run's bytes (it raises otherwise);
 - each BASELINE config returns its keys and names its content (config
@@ -80,14 +81,20 @@ def test_synthetic_batch_is_the_jax_bench_recipe(jax_configs, hw):
 
 def test_bench_main_prints_one_line(tiny_env, capsys):
     assert BENCH.main([], device="cpu") == 0
-    out = capsys.readouterr().out
+    captured = capsys.readouterr()
+    out = captured.out
     lines = out.splitlines()
     assert len(lines) == 1, out
     rec = json.loads(lines[0])
     assert set(BENCH.FIELDS) <= set(rec), set(BENCH.FIELDS) - set(rec)
-    assert rec["metric"] == "pipeline_u2netp_matting_kmeans16_64x96_b1"
+    assert rec["metric"] == "pipeline_u2netp_matting_kmeans16_64x96_b1_photo"
     assert rec["unit"] == "MP/sec/chip"
-    assert rec["content"] == "synthetic"
+    assert rec["content"] == "photo"
+    synthetic = [json.loads(line.split(" ", 2)[2])
+                 for line in captured.err.splitlines()
+                 if line.startswith("[bench] synthetic {")]
+    assert len(synthetic) == 1 and synthetic[0]["content"] == "synthetic"
+    assert synthetic[0]["metric"] == "pipeline_u2netp_matting_kmeans16_64x96_b1"
     assert rec["device"] == "cpu" and rec["card"] == "cpu"
     assert rec["value"] > 0 and rec["device_resident_mp_s"] > 0
     assert rec["vs_baseline"] == pytest.approx(rec["value"] / 50.0)
@@ -153,8 +160,8 @@ def test_profile_stages_rows():
     (1, {"h": 32, "w": 48}, {"mp_per_call", "s_per_call", "times_s"}),
     (2, {"h": 48, "w": 64, "b": 2}, {"mp_per_batch", "per_algorithm"}),
     (3, {"h": 48, "w": 64}, {"mp_per_call", "per_algorithm"}),
-    (4, {"h": 48, "w": 64, "iterations": 2, "seeds": (21,)},
-     {"mp_total", "grabcut", "matting"}),
+    (4, {"size": 64, "n": 1, "iterations": 2},
+     {"mp_total", "grabcut", "matting", "crops"}),
     (5, {"b": 1, "h": 64, "w": 96}, {"mp_per_batch", "s_per_batch",
                                      "times_s"}),
 ])
@@ -184,6 +191,7 @@ def test_baseline_config_records(config, kwargs, keys, monkeypatch):
         assert "t_dbscan" in per["adaptive_distance"]["last_solve_info"]
         assert "t_fit" in per["hsv_clustering"]["last_solve_info"]
     if config == 4:
+        assert rec["crops"] == ["china"] and "64x48" in rec["desc"]
         assert "cut_iters" in rec["grabcut"]["last_solve_info"]
         assert "f32_iters" in rec["matting"]["last_solve_info"]
     json.dumps(rec)
