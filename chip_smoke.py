@@ -31,8 +31,14 @@ Phases, each raising (and exiting non-zero) on failure:
    beside it) also the time of the same calls replayed from a CUDA graph,
    the device's alone;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
-   photo-like batch, with output checks, per-kernel launch counts, and a
-   bit-identical second run;
+   photo-like batch, compiled (captured as CUDA graphs at its first call,
+   replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
+   bytes and CG and Lloyd counts, per-kernel launch counts from the
+   replays (K3 in whole CG chunks), a call on other images that leaves
+   the first call's outputs alone, a bit-identical third run, the
+   compiled wall beside the eager stages', the device busy time and idle
+   share, the peak memory, and a second shape (2 x 1080 x 1920) with a
+   program of its own;
 5. card against CPU: the same pipeline and weights on a 720 x 1280 image
    on the card and on the CPU (plain path), end to end, and the matting
    and quantize stages from the same CNN mask on both;
@@ -212,7 +218,9 @@ from image_segmenter_tpu_torch.ops import connected_components as CCOMP
 from image_segmenter_tpu_torch.ops import native as NATIVE
 from image_segmenter_tpu_torch.ops.color import pack_rgb_u32 as PACK
 from image_segmenter_tpu_torch.parallel import mesh as PM
+from image_segmenter_tpu_torch.pipeline import segment as SEG
 from image_segmenter_tpu_torch.pipeline import train as TRAIN
+from image_segmenter_tpu_torch.pipeline.compiled import drive
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 from image_segmenter_tpu_torch.pipeline.staged import StagedPipeline, \
     split_stage_meshes
@@ -947,27 +955,69 @@ def check_output(out, k: int, b: int, h: int, w: int) -> None:
             fail(f"image {i}: an opaque colour is not in its palette")
 
 
+SECOND_SHAPE = (2, 1080, 1920)  # phase 4's second program
+
+
+def _walls(fn, n: int) -> list:
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
 def run_slice(label: str):
-    """Phase 4; returns the launches and image 0 of the RGBA output."""
+    """Phase 4; returns the launches and image 0 of the RGBA output.
+
+    `Pipeline.run` is the compiled run: its first call warms up and
+    captures the program of the shape (CUDA graphs), every later call
+    replays it. It is held to MAIN_PATH_SHA256, to the eager stages'
+    bytes and loop counts on the same batch, and its launches are counted
+    from the replays."""
     imgs = photo_batch(BATCH, H4K, W4K, seed=0)
     pipe = Pipeline(model="u2netp", k=16, device="cuda")
     x = torch.from_numpy(imgs).to("cuda")
-    pipe.run(x)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.run(x)  # warm-up and capture
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    (prog,) = pipe.programs.values()
+    torch.cuda.reset_peak_memory_stats()
+    pipe.run_eager(x)
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[slice] first call (warm-up and capture of the program): "
+          f"{t_capture:.3f} s; peak memory allocated {peak:.3f} GiB, "
+          f"reserved after it (the program's pool included) "
+          f"{reserved:.3f} GiB; an eager run's peak {peak_eager:.3f} GiB "
+          f"({label})")
 
     zero_counts()
     out = pipe.run(x)
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_counts().items() if k in MAIN_PATH}
-    print(f"[slice] kernel launches in one Pipeline.run: {launches}")
+    cg_it, lloyd_it = prog.iterations()
+    print(f"[slice] kernel launches in one Pipeline.run (from the replays): "
+          f"{launches}; CG iterations {cg_it.tolist()}, Lloyd iterations "
+          f"{lloyd_it.tolist()}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched by the main path")
     # one histogram for the trimap's two quantiles and one for Otsu; one
-    # precompute and one palette map a batch
-    if (launches["histogram"], launches["precompute"],
-            launches["quantize"]) != (2, 1, 1):
-        fail(f"the main path's launches a run changed: {launches}")
+    # precompute and one palette map a batch; K3 once for the first
+    # residual and CG_CHUNK times in each chunk the loop replayed
+    chunks = -(-int(cg_it.max()) // MAT.CG_CHUNK)
+    want = {"histogram": 2, "precompute": 1,
+            "matvec": 1 + MAT.CG_CHUNK * chunks, "quantize": 1}
+    if launches != want:
+        fail(f"the main path's launches a run are {launches}, not {want}")
 
     check_output(out, 16, BATCH, H4K, W4K)
     sha = {name: BENCH_K12._sha(t) for name, t in zip(out._fields, out)}
@@ -975,25 +1025,59 @@ def run_slice(label: str):
     if sha != MAIN_PATH_SHA256:
         fail(f"the main path's outputs changed: {sha}, expected "
              f"{MAIN_PATH_SHA256}")
+
+    loops = []
+    eager = drive(SEG.batch_program(pipe.stages, pipe.session.module, x),
+                  loops)
+    if not all(torch.equal(a, b) for a, b in zip(out, eager)):
+        fail("the compiled run's bytes are not the eager stages'")
+    if not (torch.equal(cg_it, loops[0].it)
+            and torch.equal(lloyd_it, loops[1].it)):
+        fail(f"the compiled run's loop counts {cg_it.tolist()} "
+             f"{lloyd_it.tolist()} are not the eager stages' "
+             f"{loops[0].it.tolist()} {loops[1].it.tolist()}")
+    keep = [t.clone() for t in out]
+    other = pipe.run(torch.flip(x, dims=[0]))
+    if not all(torch.equal(a, b) for a, b in zip(out, keep)):
+        fail("a second call changed the first call's outputs")
+    if torch.equal(other.alpha, out.alpha):
+        fail("a call on other images gave the first call's alpha")
     again = pipe.run(x)
     for a, b in zip(out, again):
         if not torch.equal(a, b):
             fail("a second run is not bit-identical")
+    print("[slice] compiled run: the eager stages' bytes and loop counts; "
+          "a call on the batch reversed left the first outputs alone; a "
+          "third call bit-identical")
 
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.run(x)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = _walls(lambda: pipe.run(x), 5)
+    eager_walls = _walls(lambda: pipe.run_eager(x), 3)
     wall = statistics.median(walls)
     mp = BATCH * H4K * W4K / 1e6
-    print(f"[slice] Pipeline(u2netp, k=16) {BATCH}x{H4K}x{W4K}: outputs ok, "
-          f"second run bit-identical; warm {wall * 1e3:.3f} ms/batch "
-          f"(median of {len(walls)}: "
+    print(f"[slice] Pipeline(u2netp, k=16) {BATCH}x{H4K}x{W4K}: outputs ok; "
+          f"compiled {wall * 1e3:.3f} ms/batch (median of {len(walls)}: "
           f"{', '.join(f'{t * 1e3:.3f}' for t in walls)}), "
-          f"{mp / wall:.3f} MP/s device-resident ({label})")
+          f"{mp / wall:.3f} MP/s device-resident; eager stages "
+          f"{statistics.median(eager_walls) * 1e3:.3f} ms/batch (median of "
+          f"{len(eager_walls)}: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in eager_walls)}) ({label})")
+    ops, intervals = PROF.capture_device_timeline(lambda: pipe.run(x))
+    busy = PROF.busy_us(intervals) / 1e3
+    print(f"[slice] compiled run under the profiler: {len(intervals)} device "
+          f"operations, device busy {busy:.3f} ms, idle share against the "
+          f"unprofiled median {1.0 - busy / (wall * 1e3):.4f} ({label})")
+
+    y = torch.from_numpy(photo_batch(*SECOND_SHAPE, seed=3)).to("cuda")
+    got = pipe.run(y)
+    if len(pipe.programs) != 2:
+        fail(f"a second shape did not make a program of its own: "
+             f"{list(pipe.programs)}")
+    if not all(torch.equal(a, b) for a, b in zip(got, pipe.run_eager(y))):
+        fail(f"the compiled run at {SECOND_SHAPE} is not the eager stages'")
+    if not all(torch.equal(a, b) for a, b in zip(pipe.run(x), out)):
+        fail("the first shape's program changed after the second's capture")
+    print(f"[slice] a second shape {SECOND_SHAPE}: its own program, the "
+          f"eager stages' bytes; the first program unchanged")
 
     # stage breakdown (host clock around synchronised stages)
     st = pipe.stages
@@ -1008,7 +1092,7 @@ def run_slice(label: str):
     st.quantize(x, sharp)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    print(f"[slice] stages ms: cnn {(t[1] - t[0]) * 1e3:.3f}, matting "
+    print(f"[slice] eager stages ms: cnn {(t[1] - t[0]) * 1e3:.3f}, matting "
           f"{(t[2] - t[1]) * 1e3:.3f} ({KMV.LAUNCHES - mv0} matvec launches), "
           f"quantize {(t[3] - t[2]) * 1e3:.3f} ({label})")
     return launches, out[0][0].cpu().numpy()
@@ -2662,21 +2746,25 @@ def run_programs(label: str, slice_launches: dict) -> None:
         res = PROFILE.profile("cuda", BATCH, H4K, W4K, reps=PROGRAM_REPS,
                               imgs=photo_batch(BATCH, H4K, W4K, seed=0))
         PROFILE.print_table(res)
-    if len(res["rows"]) != 13 or any(r["device_ops"] is None
+    if len(res["rows"]) != 14 or any(r["device_ops"] is None
                                      for r in res["rows"]):
         fail(f"profile_stages: rows without a device view: {res['rows']}")
     if res["launches"] != slice_launches:
         fail(f"profile_stages launched {res['launches']} in one run, phase 4 "
              f"{slice_launches}")
-    for key in ("idle_share", "idle_share_unprofiled"):
+    for key in ("idle_share", "idle_share_unprofiled", "compiled_idle_share",
+                "compiled_idle_share_unprofiled"):
         if not 0.0 <= res[key] <= 1.0:
             fail(f"profile_stages: {key} {res[key]} outside [0, 1]")
     print(f"[programs] profile_stages {BATCH}x{H4K}x{W4K}: sum of stages "
           f"{res['sum_stages_ms']:.3f} ms against the full run "
           f"{res['full_ms']:.3f}; busy share {res['busy_share']:.4f}, idle "
           f"share {res['idle_share']:.4f} (against the unprofiled run "
-          f"{res['idle_share_unprofiled']:.4f}); launches as phase 4's "
-          f"({label})")
+          f"{res['idle_share_unprofiled']:.4f}); compiled run "
+          f"{res['compiled_ms']:.3f} ms, idle share "
+          f"{res['compiled_idle_share']:.4f} (against the unprofiled run "
+          f"{res['compiled_idle_share_unprofiled']:.4f}); launches as "
+          f"phase 4's ({label})")
 
     for config in (BASELINE.config_1, BASELINE.config_2, BASELINE.config_5):
         with contextlib.redirect_stderr(sys.stdout):

@@ -12,7 +12,10 @@ padding, no bin-0 correction, no memset and no cast beside the kernel.
 The totals live in a small int32 scratch that is all zero between calls.
 `hist256` keeps one per device and stream, zeroed once when it is made, so
 calls on one stream follow each other and calls on two streams never share
-one.
+one. A CUDA graph captured on a stream (pipeline/compiled.py) holds that
+stream's scratch by address and replays K1 on it, which the epilogue
+leaves zero for the next replay; so a scratch is never freed, not even
+when a larger one replaces it.
 
 `hist256` routes by device: a CUDA tensor launches the kernel, a CPU
 tensor takes `hist256_plain`, the compare-reduce of
@@ -37,6 +40,7 @@ SCRATCH_ROW = 257        # int32 a row of the scratch: 256 totals and the ticket
 _MIN_SCRATCH_ROWS = 8
 
 _scratch = {}  # (device index, stream) -> (rows, 257) int32, zero between calls
+_retired = []  # scratch outgrown on its stream, kept for the graphs that read it
 
 
 def blocks_per_row(n: int, b: int, sms: int) -> int:
@@ -51,6 +55,9 @@ def _scratch_for(device: torch.device, stream: int, b: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.shape[0] < b:
+        if buf is not None:
+            # a CUDA graph captured on this stream may hold it: never free
+            _retired.append(buf)
         buf = torch.zeros((max(b, _MIN_SCRATCH_ROWS), SCRATCH_ROW),
                           dtype=torch.int32, device=device)
         _scratch[key] = buf

@@ -11,10 +11,18 @@ Counterpart of image_segmenter_tpu/pipeline/segment.py (BASELINE config
 3. black-filter ladder, grid colour sample, deterministic k-means, and
    the fused nearest-palette map (quantize).
 
-Eager PyTorch, one batch at a time: the JAX package's per-image `vmap`s
-are a batch axis written out. Four hand-written CUDA kernels run on a
-CUDA device: K1 histogram (trimap quantiles, Otsu), K2 precompute and K3
-matvec (matting), K4 quantize (the palette map).
+One batch at a time: the JAX package's per-image `vmap`s are a batch
+axis written out. Four hand-written CUDA kernels run on a CUDA device: K1
+histogram (trimap quantiles, Otsu), K2 precompute and K3 matvec
+(matting), K4 quantize (the palette map).
+
+Compiled on the card, as the JAX package's `jax.jit`: `Pipeline.run` on a
+CUDA device captures the batch function once per input shape as CUDA
+graphs and replays them (pipeline/compiled.py), the matting CG and the
+Lloyd loop replayed a chunk at a time until their stop flag clears. The
+batch function is a program (`batch_program`) that yields each loop it
+reaches; the eager stage functions (`Pipeline.stages`, `run_eager`) drive
+the same programs op by op, which is how the CPU and the sharded run go.
 
 `Pipeline(sharding=batch_sharding(mesh))` spreads a batch over a (data,
 space) mesh of device slots (parallel/mesh.py), as the JAX package's
@@ -43,8 +51,9 @@ from image_segmenter_tpu_torch.ops import morphology as M
 from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, \
     same_device, split_bounds, to_slot
+from image_segmenter_tpu_torch.pipeline.compiled import Compiled, drive
 from image_segmenter_tpu_torch.solvers import kmeans as KM
-from image_segmenter_tpu_torch.solvers.matting import solve_alpha_cf
+from image_segmenter_tpu_torch.solvers.matting import CGLoop
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
 
 
@@ -164,11 +173,16 @@ def _kmeans16_sample(rgb: torch.Tensor, alpha_mask: torch.Tensor, k: int):
     return sample, wts, thr
 
 
-def _kmeans16_fit(sample: torch.Tensor, wts: torch.Tensor, k: int):
+def _kmeans16_fit_program(sample: torch.Tensor, wts: torch.Tensor, k: int):
     """Deterministic weighted k-means on the (B, cap, 3) sample -> u8
-    centers (B, k, 3)."""
-    centers = KM.kmeans_fit_det(sample, wts, k).centers
-    return torch.clamp(centers, 0, 255).to(torch.uint8)
+    centers (B, k, 3); yields its Lloyd loop."""
+    loop = KM.kmeans_fit_det_loop(sample, wts, k)
+    yield loop
+    return torch.clamp(loop.finish().centers, 0, 255).to(torch.uint8)
+
+
+def _kmeans16_fit(sample: torch.Tensor, wts: torch.Tensor, k: int):
+    return drive(_kmeans16_fit_program(sample, wts, k))
 
 
 def _kmeans16_map(rgb: torch.Tensor, alpha_mask: torch.Tensor,
@@ -178,11 +192,12 @@ def _kmeans16_map(rgb: torch.Tensor, alpha_mask: torch.Tensor,
     return quantize_map(rgb, alpha_mask, centers_u8.to(torch.float32), k, thr)
 
 
-def _kmeans16_quantize(rgb: torch.Tensor, alpha_mask: torch.Tensor, k: int):
+def _kmeans16_quantize_program(rgb: torch.Tensor, alpha_mask: torch.Tensor,
+                               k: int):
     """Reference kmeans semantics on a batch: black-filter + weighted
     Lloyd on a grid sample + the fused palette map."""
     sample, wts, thr = _kmeans16_sample(rgb, alpha_mask, k)
-    centers_u8 = _kmeans16_fit(sample, wts, k)
+    centers_u8 = yield from _kmeans16_fit_program(sample, wts, k)
     return _kmeans16_map(rgb, alpha_mask, thr, centers_u8, k), centers_u8
 
 
@@ -202,27 +217,37 @@ def saliency_u8(module, small: torch.Tensor, mean: torch.Tensor,
         .to(torch.uint8)
 
 
-def matting_solve_u8(rgb_s: torch.Tensor, trimap: torch.Tensor,
-                     a_s: torch.Tensor, cg_iters: int, mesh=None):
+def matting_solve_program(rgb_s: torch.Tensor, trimap: torch.Tensor,
+                          a_s: torch.Tensor, cg_iters: int, mesh=None):
     """The matting solve at the shrunk size: u8 rgb (B, h, w, 3), the
     trimap and the u8 CNN alpha as the warm start -> (u8 alpha (B, h, w),
-    CG iterations (B,))."""
+    CG iterations (B,)); yields its CG loop."""
     # rtol 1e-4 suffices for uint8 alpha (quantization step 4e-3);
     # CG warm-started at the CNN alpha
-    alpha_m, _, iters, _ = solve_alpha_cf(
-        true_div(rgb_s.to(torch.float32), 255.0), trimap,
-        max_iter=cg_iters, rtol=1e-4,
-        x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True,
-        mesh=mesh)
+    loop = CGLoop(true_div(rgb_s.to(torch.float32), 255.0), trimap,
+                  rtol=1e-4, max_iter=cg_iters,
+                  x0=true_div(a_s.to(torch.float32), 255.0), half_stats=True,
+                  mesh=mesh)
+    yield loop
+    alpha_m, _, iters, _, _ = loop.finish()
     return torch.clamp(torch.floor(alpha_m * 255.0 + 0.5), 0, 255) \
         .to(torch.uint8), iters
 
 
+def matting_solve_u8(rgb_s: torch.Tensor, trimap: torch.Tensor,
+                     a_s: torch.Tensor, cg_iters: int, mesh=None):
+    """`matting_solve_program`, run eagerly."""
+    return drive(matting_solve_program(rgb_s, trimap, a_s, cg_iters, mesh))
+
+
 class StageFns(NamedTuple):
-    """The three pipeline phases as batch functions."""
+    """The three pipeline phases as batch functions, eager, and the two
+    with a loop also as programs that yield it (pipeline/compiled.py)."""
     cnn: Callable        # (module, imgs u8 BHW3) -> mask_small u8 (B,nh,nw)
     matting: Callable    # (imgs, mask_small) -> (sharp bool BHW, alpha u8 BHW)
     quantize: Callable   # (imgs, sharp) -> (rgba u8 BHW4, palettes u8 BK3)
+    matting_program: Callable   # matting as a program
+    quantize_program: Callable  # quantize as a program
 
 
 def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
@@ -241,7 +266,7 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
         small = RZ.resize_u8(imgs, (nh, nw), RZ.LANCZOS_PIL)
         return saliency_u8(module, small, mean, std)
 
-    def matting_stage(imgs, mask_small):
+    def matting_program(imgs, mask_small):
         h, w = imgs.shape[1:3]
         # upsample netmask to full res (LANCZOS like rembg post)
         alpha0 = RZ.resize_u8(mask_small, (h, w), RZ.LANCZOS_PIL)
@@ -254,21 +279,37 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
             sh, sw = h, w
             rgb_s, a_s = imgs, alpha0
         trimap = _trimap_device(a_s)
-        alpha_m_u8, _ = matting_solve_u8(rgb_s, trimap, a_s, cg_iters,
-                                         solve_mesh)
+        alpha_m_u8, _ = yield from matting_solve_program(
+            rgb_s, trimap, a_s, cg_iters, solve_mesh)
         if (sh, sw) != (h, w):
             alpha_full = RZ.resize_u8(alpha_m_u8, (h, w), RZ.LINEAR)
         else:
             alpha_full = alpha_m_u8
         return _sharp_alpha(alpha_full), alpha_full
 
-    def quantize_stage(imgs, sharp):
-        qrgb, centers = _kmeans16_quantize(imgs, sharp, k)
+    def quantize_program(imgs, sharp):
+        qrgb, centers = yield from _kmeans16_quantize_program(imgs, sharp, k)
         alpha_out = sharp.to(torch.uint8) * 255
         rgba = torch.cat([qrgb, alpha_out[..., None]], dim=-1)
         return rgba, centers
 
-    return StageFns(cnn_stage, matting_stage, quantize_stage)
+    def matting_stage(imgs, mask_small):
+        return drive(matting_program(imgs, mask_small))
+
+    def quantize_stage(imgs, sharp):
+        return drive(quantize_program(imgs, sharp))
+
+    return StageFns(cnn_stage, matting_stage, quantize_stage,
+                    matting_program, quantize_program)
+
+
+def batch_program(stages: StageFns, module, imgs: torch.Tensor):
+    """The whole batch function as one program: (rgba, alpha, palettes)
+    of a (B, H, W, 3) u8 batch on the stages' device."""
+    mask = stages.cnn(module, imgs)
+    sharp, alpha = yield from stages.matting_program(imgs, mask)
+    rgba, palettes = yield from stages.quantize_program(imgs, sharp)
+    return rgba, alpha, palettes
 
 
 def network_on(module: torch.nn.Module, dev: torch.device,
@@ -283,6 +324,14 @@ def network_on(module: torch.nn.Module, dev: torch.device,
     return copies[key]
 
 
+def _as_batch(imgs_u8) -> torch.Tensor:
+    x = torch.as_tensor(imgs_u8)
+    if x.dim() != 4 or x.shape[-1] != 3 or x.dtype != torch.uint8:
+        raise ValueError("Pipeline.run takes a (B, H, W, 3) uint8 batch, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    return x
+
+
 class Pipeline:
     """End-to-end pipeline for a fixed model id, on one device or sharded
     over a mesh.
@@ -290,9 +339,14 @@ class Pipeline:
     `run(imgs)` takes a (B, H, W, 3) uint8 batch (numpy or tensor) and
     returns a PipelineOutput of tensors on `device`. device defaults to
     "cuda" and raises when CUDA is absent; it never falls back to the CPU.
-    With `sharding` (`batch_sharding(mesh)`; see the module docstring) the
-    run lives on the mesh's slots, `device` is not read, and the outputs
-    are on the mesh's first slot.
+    On a CUDA device `run` is compiled, as the JAX `Pipeline` is: the
+    first call of each input shape captures the batch function as CUDA
+    graphs (pipeline/compiled.py; model, B, H, W and device key the
+    program), and every call replays them. `run_eager` runs the same
+    stages op by op, which is what `run` does on the CPU. With `sharding`
+    (`batch_sharding(mesh)`; see the module docstring) the run lives on
+    the mesh's slots, eagerly, `device` is not read, and the outputs are
+    on the mesh's first slot.
     """
 
     def __init__(self, model: str = "u2netp", k: int = 16,
@@ -323,20 +377,34 @@ class Pipeline:
                                      solve_mesh=g))
             for g in (mesh.group(i) for i in range(mesh.shape[0]))]
         self._copies = {}
+        self.programs = {}  # the compiled run's programs, by key
 
     def run(self, imgs_u8) -> PipelineOutput:
-        return self._run(imgs_u8, None)
+        x = _as_batch(imgs_u8)
+        if self.sharding is not None or self.device.type != "cuda":
+            return self._run(x, None)
+        key = (self.session.model_id, *x.shape[:3], str(self.device))
+        prog = self.programs.get(key)
+        if prog is None:
+            stages, module = self.stages, self.session.module
+            prog = Compiled(lambda imgs: batch_program(stages, module, imgs),
+                            x.shape, x.dtype, self.device)
+            out = PipelineOutput(*prog(x))
+            self.programs[key] = prog  # kept once its capture succeeded
+            return out
+        return PipelineOutput(*prog(x))
+
+    def run_eager(self, imgs_u8) -> PipelineOutput:
+        """`run` op by op through `stages`, never from a graph: the plain
+        counterpart of the compiled run, with its bytes."""
+        return self._run(_as_batch(imgs_u8), None)
 
     def run_from_mask(self, imgs_u8, mask_small) -> PipelineOutput:
         """The matting and quantize stages from a given CNN mask (B, nh,
         nw) uint8, as `run` would take them after its CNN stage."""
-        return self._run(imgs_u8, torch.as_tensor(mask_small))
+        return self._run(_as_batch(imgs_u8), torch.as_tensor(mask_small))
 
-    def _run(self, imgs_u8, mask_small) -> PipelineOutput:
-        x = torch.as_tensor(imgs_u8)
-        if x.dim() != 4 or x.shape[-1] != 3 or x.dtype != torch.uint8:
-            raise ValueError("Pipeline.run takes a (B, H, W, 3) uint8 batch, "
-                             f"got {tuple(x.shape)} {x.dtype}")
+    def _run(self, x: torch.Tensor, mask_small) -> PipelineOutput:
         groups = [(self.device, self.stages, 0, x.shape[0])] \
             if self.sharding is None else [
                 (dev, st, b0, b1) for (dev, st), (b0, b1) in zip(

@@ -9,8 +9,11 @@ restarts, the best inertia wins), `assign_labels` and `map_to_centers`.
 `kmeans_fit_det`, `assign_labels` and `map_to_centers` take a leading
 batch axis. The JAX package vmaps the Lloyd `while_loop` over images,
 where each image freezes once its own shift is within tolerance; the port
-keeps a per-image active mask and reads it on the host once per
-iteration, so each image runs the iterations it runs in JAX.
+keeps a per-image active mask, so each image runs the iterations it runs
+in JAX. The loop runs in chunks of `LLOYD_CHUNK` iterations with its
+state in place (`LloydLoop`): eagerly the host reads the stop flag once a
+chunk, and the compiled pipeline (pipeline/compiled.py) replays a
+captured chunk until the flag clears.
 
 `kmeans_fit` takes one point set, as in the JAX package. Its restarts
 are a leading axis of the centres: all of them advance in lock step over
@@ -44,6 +47,9 @@ from image_segmenter_tpu_torch.utils import prng as PRNG
 from image_segmenter_tpu_torch.utils.backend import true_div
 
 _BLOCK = 1 << 17  # 131072 points per assignment block
+# Lloyd iterations of `kmeans_fit_det` between two reads of the stop flag
+# (bench/sweep_chunks.py measures the choice)
+LLOYD_CHUNK = 8
 
 
 class KMeansResult(NamedTuple):
@@ -100,13 +106,31 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _lloyd(pts, w, centers, max_iter: int, tol: torch.Tensor) -> KMeansResult:
-    """Weighted Lloyd iterations until shift^2 <= tol, per image."""
-    bsz, nb, blk, d = pts.shape
-    k = centers.shape[1]
-    flatp = pts.reshape(bsz, nb * blk, d)
+class LloydLoop:
+    """Weighted Lloyd iterations until shift^2 <= tol, per image, as a
+    loop its caller drives: `step` runs `LLOYD_CHUNK` iterations on the
+    device, `flag` (0-dim bool) says whether any image is still active,
+    and `finish` snaps the centres and returns the KMeansResult. The
+    state (centres, shift^2, iterations, active, flag) lives in buffers
+    that `step` writes in place, so a step captured in a CUDA graph reads
+    and writes the same addresses on every replay (pipeline/compiled.py).
+    An image that stops inside a chunk keeps its centres through the rest
+    of it, as under the JAX package's vmapped `while_loop`: any chunk size
+    gives the same bits."""
 
-    def assign_stats(centers):
+    def __init__(self, pts, w, centers, max_iter: int, tol: torch.Tensor):
+        self.pts, self.w, self.max_iter, self.tol = pts, w, max_iter, tol
+        bsz = pts.shape[0]
+        self.centers = centers.clone()
+        self.shift2 = torch.full((bsz,), float("inf"), device=pts.device)
+        self.it = torch.zeros((bsz,), dtype=torch.int32, device=pts.device)
+        self.active = (self.shift2 > tol) & (self.it < max_iter)
+        self.flag = self.active.any()
+
+    def _assign_stats(self, centers):
+        pts, w = self.pts, self.w
+        bsz, nb, _, d = pts.shape
+        k = centers.shape[1]
         sums = torch.zeros((bsz, k, d), dtype=torch.float32, device=pts.device)
         counts = torch.zeros((bsz, k), dtype=torch.float32, device=pts.device)
         inertia = torch.zeros((bsz,), dtype=torch.float32, device=pts.device)
@@ -122,11 +146,14 @@ def _lloyd(pts, w, centers, max_iter: int, tol: torch.Tensor) -> KMeansResult:
             inertia = inertia + (d2.amin(dim=2) * wb).sum(dim=1)
         return sums, counts, inertia
 
-    def reseed_empty(centers, counts):
+    def _reseed_empty(self, centers, counts):
         """Move empty clusters onto the current farthest points: the i-th
         empty slot takes the i-th farthest point."""
-        md = _min_d2_blocked(pts, w, centers).reshape(bsz, -1)
-        far_pts = _gather_rows(flatp, _top_k_indices(md, k))   # (B, k, d)
+        bsz, nb, blk, d = self.pts.shape
+        k = centers.shape[1]
+        md = _min_d2_blocked(self.pts, self.w, centers).reshape(bsz, -1)
+        far_pts = _gather_rows(self.pts.reshape(bsz, nb * blk, d),
+                               _top_k_indices(md, k))          # (B, k, d)
         empty = counts == 0
         slot = torch.clamp(torch.cumsum(empty.to(torch.int32), dim=1) - 1,
                            0, k - 1)
@@ -134,27 +161,43 @@ def _lloyd(pts, w, centers, max_iter: int, tol: torch.Tensor) -> KMeansResult:
                            _gather_rows(far_pts, slot.to(torch.int64)),
                            centers)
 
-    shift2 = torch.full((bsz,), float("inf"), device=pts.device)
-    it = torch.zeros((bsz,), dtype=torch.int32, device=pts.device)
-    active = (shift2 > tol) & (it < max_iter)
-    while bool(active.any()):
-        sums, counts, _ = assign_stats(centers)
-        new = torch.where(counts[..., None] > 0,
-                          sums / torch.clamp_min(counts, 1.0)[..., None],
-                          centers)
-        new = reseed_empty(new, counts)
-        shift = new - centers
-        s2 = tree_sum((shift * shift).reshape(bsz, -1))
-        centers = torch.where(active[:, None, None], new, centers)
-        shift2 = torch.where(active, s2, shift2)
-        it = it + active.to(torch.int32)
-        active = (shift2 > tol) & (it < max_iter)
-    # Snap near-integer means to the integer (pure-color clusters), which
-    # a downstream uint8 cast would otherwise truncate.
-    rounded = torch.round(centers)
-    centers = torch.where(torch.abs(centers - rounded) < 1e-3, rounded, centers)
-    _, _, inertia = assign_stats(centers)
-    return KMeansResult(centers=centers, inertia=inertia)
+    def step(self) -> None:
+        """`LLOYD_CHUNK` iterations; images no longer active keep their
+        centres. No host read: a CUDA graph can capture it."""
+        bsz = self.pts.shape[0]
+        centers, shift2, it, active = \
+            self.centers, self.shift2, self.it, self.active
+        for _ in range(LLOYD_CHUNK):
+            sums, counts, _ = self._assign_stats(centers)
+            new = torch.where(counts[..., None] > 0,
+                              sums / torch.clamp_min(counts, 1.0)[..., None],
+                              centers)
+            new = self._reseed_empty(new, counts)
+            shift = new - centers
+            s2 = tree_sum((shift * shift).reshape(bsz, -1))
+            centers = torch.where(active[:, None, None], new, centers)
+            shift2 = torch.where(active, s2, shift2)
+            it = it + active.to(torch.int32)
+            active = (shift2 > self.tol) & (it < self.max_iter)
+        for dst, src in ((self.centers, centers), (self.shift2, shift2),
+                         (self.it, it), (self.active, active)):
+            dst.copy_(src)
+        torch.any(active, out=self.flag)
+
+    def run(self) -> None:
+        """Step until no image is active: one host read a chunk."""
+        while bool(self.flag):
+            self.step()
+
+    def finish(self) -> KMeansResult:
+        # Snap near-integer means to the integer (pure-color clusters),
+        # which a downstream uint8 cast would otherwise truncate.
+        centers = self.centers
+        rounded = torch.round(centers)
+        centers = torch.where(torch.abs(centers - rounded) < 1e-3, rounded,
+                              centers)
+        _, _, inertia = self._assign_stats(centers)
+        return KMeansResult(centers=centers, inertia=inertia)
 
 
 def _tolerance(flatp: torch.Tensor, flatw: torch.Tensor, k: int) -> torch.Tensor:
@@ -174,11 +217,25 @@ def kmeans_fit_det(points: torch.Tensor, weights: torch.Tensor, k: int, *,
                    max_iter: int = 300, candidates: int = 8) -> KMeansResult:
     """Deterministic, sampling-free k-means for the throughput pipeline.
 
+    points (B, N, 3), weights (B, N) >= 0 -> KMeansResult; the seeding and
+    the Lloyd run of `kmeans_fit_det_loop`, run to its end."""
+    loop = kmeans_fit_det_loop(points, weights, k, max_iter=max_iter,
+                               candidates=candidates)
+    loop.run()
+    return loop.finish()
+
+
+def kmeans_fit_det_loop(points: torch.Tensor, weights: torch.Tensor, k: int,
+                        *, max_iter: int = 300,
+                        candidates: int = 8) -> LloydLoop:
+    """`kmeans_fit_det` up to its Lloyd loop: the seeded LloydLoop.
+
     points (B, N, 3), weights (B, N) >= 0. Greedy-potential kmeans++
     seeding with deterministic candidates — one at each of `candidates`
     stratified quantiles of the potential CDF cumsum(w * min_d2); the
-    winner minimises the total resulting potential — then one Lloyd run.
-    The first seed is the heaviest point.
+    winner minimises the total resulting potential — then one Lloyd run,
+    returned as its loop before the first step. The first seed is the
+    heaviest point.
     """
     points = points.to(torch.float32)
     weights = weights.to(torch.float32)
@@ -218,7 +275,7 @@ def kmeans_fit_det(points: torch.Tensor, weights: torch.Tensor, k: int, *,
         min_d2 = torch.gather(nd, 2, best[:, None, None].expand(
             -1, nd.shape[1], 1))[..., 0]
 
-    return _lloyd(pts, w, centers, max_iter, _tolerance(flatp, flatw, k))
+    return LloydLoop(pts, w, centers, max_iter, _tolerance(flatp, flatw, k))
 
 
 # ---------------------------------------------------------------------------

@@ -21,14 +21,17 @@ The JAX package runs one image's CG in a `lax.while_loop` and vmaps it
 over the batch; under vmap each image freezes once its own condition is
 false. Here the batch axis is written out: every iteration runs the body
 for the whole batch and keeps the new state only for images still active,
-so each image stops at the iteration count it has in JAX. The host reads
-the active mask once per iteration.
+so each image stops at the iteration count it has in JAX. The loop runs
+in chunks of `CG_CHUNK` iterations with the state in place (`CGLoop`):
+eagerly the host reads the stop flag once a chunk, and the compiled
+pipeline (pipeline/compiled.py) replays a captured chunk until the flag
+clears, the counterpart of the JAX package's `lax.while_loop`.
 
 `mesh=` splits a solve's rows over the space slots of a (1, S) mesh
 (parallel/mesh.py), where the JAX package gets the same from GSPMD on
 row-sharded inputs: each slot runs the precompute (K2) and every matvec
 (K3) on its row block with ghost rows, the sums add float64 partials, and
-one stop decision serves every slot (`_solve_impl`).
+one stop decision serves every slot (`CGLoop`).
 
 The JAX package sends only solves of at most 2.5 MP to its fused matvec,
 because the TPU kernel's overlap-tiled operand stack cost extra device
@@ -60,6 +63,11 @@ from image_segmenter_tpu_torch.parallel.mesh import SPACE_AXIS, split_bounds, \
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
 
 _LAMBDA = 100.0  # pymatting's known-constraint weight
+# CG iterations between two reads of the stop flag. A chunk wastes up to
+# CG_CHUNK - 1 masked iterations of the slowest image's solve and saves a
+# host read and its idle gap on each of the others; 8 divides the main
+# path's cap of 200 (bench/sweep_chunks.py measures the choice).
+CG_CHUNK = 8
 
 
 class _Precomp(NamedTuple):
@@ -194,12 +202,21 @@ def _space_slots(mesh) -> list:
     return list(mesh.devices[0])
 
 
-def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
-                radius: int, lam, rtol: float, max_iter: int,
-                x0: Optional[torch.Tensor], half_stats: bool, mesh=None):
-    """Shared CG body; returns (alpha, ok, it, res, rankdef_frac), where
-    rankdef_frac (B,) is the unknown-band exact-rank-deficiency fraction
-    from the same precompute the solve uses.
+class CGLoop:
+    """The batched CG as a loop its caller drives: the constructor runs
+    the precompute and the first residual, `step` runs `CG_CHUNK`
+    iterations on the solve's devices, `flag` (a 0-dim bool on the first slot) says
+    whether any image is still active, and `finish` returns (alpha, ok,
+    it, res, rankdef_frac), where rankdef_frac (B,) is the unknown-band
+    exact-rank-deficiency fraction from the same precompute the solve
+    uses.
+
+    The loop-carried state (x, r, p, rz, pending, it, active and the flag)
+    lives in buffers that `step` writes in place, so a step captured in a
+    CUDA graph reads and writes the same addresses on every replay
+    (pipeline/compiled.py). An image that stops inside a chunk keeps its
+    state through the rest of the chunk, as under the JAX package's
+    vmapped `while_loop`: any chunk size gives the same bits and counts.
 
     With a mesh the image rows split over its space slots (torch.
     tensor_split sizes). Each slot precomputes its block extended by
@@ -215,69 +232,85 @@ def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
     there. Outputs are on the first slot; they are the unsplit solve's
     bits on the test cases, since every pixel's arithmetic is the same
     and the sums round once from float64."""
-    dt = torch.float64 if image01.dtype == torch.float64 else torch.float32
-    img = image01.to(dt).permute(0, 3, 1, 2)
-    trimap = trimap.to(dt)
-    h = img.shape[2]
-    devs = [image01.device] if mesh is None else _space_slots(mesh)
-    if len(devs) > h:
-        raise ValueError(f"{h} rows cannot split over {len(devs)} slots")
-    bounds = split_bounds(h, len(devs))
-    halo = 2 * radius
-    slabs = []
-    for dev, (r0, r1) in zip(devs, bounds):
-        e0, e1 = max(0, r0 - halo), min(h, r1 + halo)
-        blk = to_slot(img[:, :, e0:e1], dev).contiguous()
-        slabs.append(_Slab(dev, (r0, r1), (e0, e1),
-                           _precompute(blk, epsilon, radius, half_stats)))
 
-    def rows(t):  # a (B, H, W) tensor split over the slots
-        return _Rows(to_slot(t[:, r0:r1], sl.dev)
-                     for sl, (r0, r1) in zip(slabs, bounds))
+    def __init__(self, image01: torch.Tensor, trimap: torch.Tensor,
+                 epsilon=1e-7, radius: int = 1, lam=_LAMBDA,
+                 rtol: float = 1e-5, max_iter: int = 400,
+                 x0: Optional[torch.Tensor] = None, half_stats: bool = False,
+                 mesh=None):
+        dt = torch.float64 if image01.dtype == torch.float64 \
+            else torch.float32
+        img = image01.to(dt).permute(0, 3, 1, 2)
+        trimap = trimap.to(dt)
+        h = img.shape[2]
+        devs = [image01.device] if mesh is None else _space_slots(mesh)
+        if len(devs) > h:
+            raise ValueError(f"{h} rows cannot split over {len(devs)} slots")
+        bounds = split_bounds(h, len(devs))
+        halo = 2 * radius
+        slabs = []
+        for dev, (r0, r1) in zip(devs, bounds):
+            e0, e1 = max(0, r0 - halo), min(h, r1 + halo)
+            blk = to_slot(img[:, :, e0:e1], dev).contiguous()
+            slabs.append(_Slab(dev, (r0, r1), (e0, e1),
+                               _precompute(blk, epsilon, radius, half_stats)))
+        self.slabs, self.bounds, self.radius, self.lam = \
+            slabs, bounds, radius, lam
+        self.rtol, self.max_iter = rtol, max_iter
 
-    tri = rows(trimap)
-    is_known = _Rows(((t < 0.1) | (t > 0.9)).to(dt) for t in tri.blocks)
-    known_fg = _Rows((t > 0.9).to(dt) for t in tri.blocks)
+        def rows(t):  # a (B, H, W) tensor split over the slots
+            return _Rows(to_slot(t[:, r0:r1], sl.dev)
+                         for sl, (r0, r1) in zip(slabs, bounds))
 
-    def matvec(q):
-        return _Rows(sl.own(_matvec(sl.pre, take(q.blocks, bounds, *sl.ext,
-                                                  sl.dev, dim=1), radius))
-                     for sl in slabs)
+        self.tri = tri = rows(trimap)
+        self.is_known = is_known = _Rows(((t < 0.1) | (t > 0.9)).to(dt)
+                                         for t in tri.blocks)
+        known_fg = _Rows((t > 0.9).to(dt) for t in tri.blocks)
+        self.b = b = lam * known_fg
+        # diag(L) > 0 mathematically; f32 can round tiny entries negative,
+        # which would flip the Jacobi preconditioner's sign — clamp.
+        self.m_inv = _Rows(
+            1.0 / torch.clamp_min(sl.own(sl.pre.diag) + lam * k, 1e-6)
+            for sl, k in zip(slabs, is_known.blocks))
 
-    def amv(p):
-        return matvec(p) + lam * is_known * p
+        if x0 is None:
+            x0 = _Rows(t.clone() for t in tri.blocks)
+        else:
+            x0 = _Rows(torch.where(k > 0, t, torch.clamp(x.to(dt), 0.0, 1.0))
+                       for k, t, x in zip(is_known.blocks, tri.blocks,
+                                          rows(x0).blocks))
+        r0 = b - self._amv(x0)
+        z0 = self.m_inv * r0
+        self.bnorm = torch.sqrt(_bsum(b * b)) + 1e-30
+        nb = image01.shape[0]
+        self.dev = devs[0]
+        # the loop-carried state, updated in place by `step`
+        self.x, self.r, self.p = x0, r0, z0
+        self.rz = _bsum(r0 * z0)
+        self.pending = torch.zeros(nb, dtype=torch.bool, device=self.dev)
+        self.it = torch.zeros(nb, dtype=torch.int32, device=self.dev)
+        self.active = self._cond(self.r, self.it)
+        self.flag = self.active.any()
 
-    b = lam * known_fg
-    # diag(L) > 0 mathematically; f32 can round tiny entries negative,
-    # which would flip the Jacobi preconditioner's sign — clamp.
-    m_inv = _Rows(1.0 / torch.clamp_min(sl.own(sl.pre.diag) + lam * k, 1e-6)
-                  for sl, k in zip(slabs, is_known.blocks))
+    def _amv(self, q: _Rows) -> _Rows:
+        """(L + lam C) q."""
+        lq = _Rows(sl.own(_matvec(sl.pre, take(q.blocks, self.bounds, *sl.ext,
+                                                sl.dev, dim=1), self.radius))
+                   for sl in self.slabs)
+        return lq + self.lam * self.is_known * q
 
-    if x0 is None:
-        x0 = _Rows(t.clone() for t in tri.blocks)
-    else:
-        x0 = _Rows(torch.where(k > 0, t, torch.clamp(x.to(dt), 0.0, 1.0))
-                   for k, t, x in zip(is_known.blocks, tri.blocks,
-                                      rows(x0).blocks))
-    r0 = b - amv(x0)
-    z0 = m_inv * r0
-    rz0 = _bsum(r0 * z0)
-    bnorm = torch.sqrt(_bsum(b * b)) + 1e-30
-    nb = image01.shape[0]
-    dev = devs[0]
-
-    def cond(r, it):
-        res = torch.sqrt(_bsum(r * r)) / bnorm
+    def _cond(self, r: _Rows, it: torch.Tensor) -> torch.Tensor:
+        res = torch.sqrt(_bsum(r * r)) / self.bnorm
         # a non-finite residual means the system is beyond f32 CG: exit
         # and report not converged (the compat retry ladder takes over)
-        return (res > rtol) & (it < max_iter) & torch.isfinite(res)
+        return (res > self.rtol) & (it < self.max_iter) & torch.isfinite(res)
 
-    def body(x, r, p, rz, pending):
+    def _body(self, x, r, p, rz, pending):
         # One matvec per iteration. A curvature at the f32 noise floor
         # (`broke`) defers an exact-residual restart to the next
         # iteration, whose matvec is applied to x (`pending`) instead of p.
-        y = amv(_where(pending, x, p))
-        r_r = b - y                                     # restart lane
+        y = self._amv(_where(pending, x, p))
+        r_r = self.b - y                                # restart lane
         pap = _bsum(p * y)
         broke = ~(pap > 1e-10 * _bsum(p * p))
         step = rz / torch.where(broke, 1.0, pap)
@@ -287,38 +320,64 @@ def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
         take_advance = (~pending) & (~broke)
         x2 = _where(take_advance, x_a, x)
         r2 = _where(take_restart, r_r, _where(take_advance, r_a, r))
-        z = m_inv * r2
+        z = self.m_inv * r2
         rz2 = _bsum(r2 * z)
         beta = torch.where(take_advance, rz2 / torch.clamp_min(rz, 1e-30), 0.0)
         p2 = _where(take_restart | take_advance, z + beta * p, p)
         rz3 = torch.where(take_restart | take_advance, rz2, rz)
         return x2, r2, p2, rz3, broke & ~pending
 
-    x, r, p, rz = x0, r0, z0, rz0
-    it = torch.zeros(nb, dtype=torch.int32, device=dev)
-    pending = torch.zeros(nb, dtype=torch.bool, device=dev)
-    active = cond(r, it)
-    # one stop decision for every slot, from the summed residual
-    while bool(active.any()):
-        x2, r2, p2, rz2, pending2 = body(x, r, p, rz, pending)
-        x = _where(active, x2, x)
-        r = _where(active, r2, r)
-        p = _where(active, p2, p)
-        rz = torch.where(active, rz2, rz)
-        pending = torch.where(active, pending2, pending)
-        it = it + active.to(torch.int32)
-        active = cond(r, it)
+    def step(self) -> None:
+        """`CG_CHUNK` iterations; images no longer active keep their state.
+        No host read: a CUDA graph can capture it."""
+        x, r, p, rz = self.x, self.r, self.p, self.rz
+        pending, it, active = self.pending, self.it, self.active
+        for _ in range(CG_CHUNK):
+            x2, r2, p2, rz2, pending2 = self._body(x, r, p, rz, pending)
+            x = _where(active, x2, x)
+            r = _where(active, r2, r)
+            p = _where(active, p2, p)
+            rz = torch.where(active, rz2, rz)
+            pending = torch.where(active, pending2, pending)
+            it = it + active.to(torch.int32)
+            active = self._cond(r, it)
+        for dst, src in ((self.x, x), (self.r, r), (self.p, p)):
+            for a, b in zip(dst.blocks, src.blocks):
+                a.copy_(b)
+        for dst, src in ((self.rz, rz), (self.pending, pending),
+                         (self.it, it), (self.active, active)):
+            dst.copy_(src)
+        torch.any(active, out=self.flag)
 
-    res = torch.sqrt(_bsum(r * r)) / bnorm
-    alpha = torch.clamp(x.gather(), 0.0, 1.0)
-    n_def = n_unk = None
-    for sl, t in zip(slabs, tri.blocks):
-        unk = (t > 0.1) & (t < 0.9)
-        d = to_slot((sl.own(sl.pre.rankdef) & unk).sum(dim=(1, 2)), dev)
-        u = to_slot(unk.sum(dim=(1, 2)), dev)
-        n_def, n_unk = (d, u) if n_def is None else (n_def + d, n_unk + u)
-    frac = n_def / torch.clamp_min(n_unk, 1)
-    return alpha, res <= rtol, it, res, frac
+    def run(self) -> None:
+        """Step until no image is active: one host read a chunk, one stop
+        decision for every slot, from the summed residual."""
+        while bool(self.flag):
+            self.step()
+
+    def finish(self):
+        """(alpha, ok, it, res, rankdef_frac) from the current state."""
+        res = torch.sqrt(_bsum(self.r * self.r)) / self.bnorm
+        alpha = torch.clamp(self.x.gather(), 0.0, 1.0)
+        n_def = n_unk = None
+        for sl, t in zip(self.slabs, self.tri.blocks):
+            unk = (t > 0.1) & (t < 0.9)
+            d = to_slot((sl.own(sl.pre.rankdef) & unk).sum(dim=(1, 2)),
+                        self.dev)
+            u = to_slot(unk.sum(dim=(1, 2)), self.dev)
+            n_def, n_unk = (d, u) if n_def is None else (n_def + d, n_unk + u)
+        frac = n_def / torch.clamp_min(n_unk, 1)
+        return alpha, res <= self.rtol, self.it.clone(), res, frac
+
+
+def _solve_impl(image01: torch.Tensor, trimap: torch.Tensor, epsilon,
+                radius: int, lam, rtol: float, max_iter: int,
+                x0: Optional[torch.Tensor], half_stats: bool, mesh=None):
+    """The whole solve: (alpha, ok, it, res, rankdef_frac) (`CGLoop`)."""
+    loop = CGLoop(image01, trimap, epsilon, radius, lam, rtol, max_iter, x0,
+                  half_stats, mesh)
+    loop.run()
+    return loop.finish()
 
 
 def solve_alpha_cf(image01: torch.Tensor, trimap: torch.Tensor,

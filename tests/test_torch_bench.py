@@ -9,7 +9,10 @@ small sizes, and their inputs against the JAX package's programs.
   stderr; a bench round's output is `Pipeline.run`'s, bit for bit;
   without a card and without device="cpu" it raises;
 - `profile_stages.profile` returns every stage row, and its chained steps
-  give the full run's bytes (it raises otherwise);
+  and its compiled row give the eager full run's bytes (it raises
+  otherwise); `main` with `--photo` profiles the photo mosaic;
+- `sweep_chunks.main` prints one line with a row a chunk size, equal
+  bytes and the loops' host reads;
 - each BASELINE config returns its keys and names its content (config
   1 with the k-means quantizer stubbed: its seconds on the CPU are spent
   in a fit that test_torch_color_simplify.py holds to JAX);
@@ -34,6 +37,7 @@ from image_segmenter_tpu_torch.bench import baseline_configs as BC
 from image_segmenter_tpu_torch.bench import bench as BENCH
 from image_segmenter_tpu_torch.bench import grabcut_parity as GP
 from image_segmenter_tpu_torch.bench import profile_stages as PS
+from image_segmenter_tpu_torch.bench import sweep_chunks as SC
 from image_segmenter_tpu_torch.compat import color_simplify as CS
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 from image_segmenter_tpu_torch.utils import profiling as PROF
@@ -141,19 +145,46 @@ def test_profile_stages_rows():
         "cnn u2netp 320x320 b1", "mask 320x320 -> 64x96 (Lanczos)",
         "AREA 64x96 -> 32x48", "trimap", "matting CG 32x48",
         "alpha 32x48 -> 64x96 (LINEAR)", "Otsu + close/open",
-        "colour sample", "k-means fit k16", "palette map", PS.FULL_RUN]
+        "colour sample", "k-means fit k16", "palette map", PS.FULL_RUN,
+        PS.COMPILED_RUN]
     for r in res["rows"]:
         assert r["ms"] > 0 and len(r["ms_all"]) == 1
         assert r["device_busy_ms"] is None and r["device_ops"] is None
     cg = res["rows"][6]
     assert len(cg["cg_iters"]) == 1 and cg["k3_launches"] == 0
     assert res["sum_stages_ms"] == pytest.approx(
-        sum(r["ms"] for r in res["rows"][1:-1]))
-    assert res["full_ms"] == res["rows"][-1]["ms"]
-    assert res["busy_share"] is None and res["idle_share"] is None
-    assert res["idle_share_unprofiled"] is None
+        sum(r["ms"] for r in res["rows"][1:-2]))
+    assert res["full_ms"] == res["rows"][-2]["ms"]
+    assert res["compiled_ms"] == res["rows"][-1]["ms"]
+    for p in ("", "compiled_"):
+        assert res[p + "busy_share"] is None and res[p + "idle_share"] is None
+        assert res[p + "idle_share_unprofiled"] is None
     assert res["card"] == "cpu" and not any(res["launches"].values())
     json.dumps(res)
+
+
+def test_profile_stages_main_photo(capsys):
+    assert PS.main(["64", "96", "1", "1", "--photo"], device="cpu") == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["content"] == "photo" and res["shape"] == [1, 64, 96]
+    assert [r["stage"] for r in res["rows"]][-2:] == [PS.FULL_RUN,
+                                                      PS.COMPILED_RUN]
+
+
+def test_sweep_chunks_line(capsys):
+    argv = ["--chunks", "1,3", "--content", "synthetic", "--reps", "1",
+            "--b", "1", "--h", "64", "--w", "96"]
+    assert SC.main(argv, device="cpu") == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    rec = json.loads(line)
+    assert rec["micro"] == "sweep_chunks" and rec["same_bytes"]
+    assert [r["chunk"] for r in rec["rows"]] == [1, 3]
+    for r in rec["rows"]:
+        n = r["chunk"]
+        assert r["host_reads"] == (-(-r["cg_iters"] // n) + 1
+                                   + -(-r["lloyd_iters"] // n) + 1)
+        assert r["k3_launches"] == 0 and r["ms"] > 0
+    assert rec["rows"][0]["cg_iters"] == rec["rows"][1]["cg_iters"] > 0
 
 
 @pytest.mark.parametrize("config,kwargs,keys", [

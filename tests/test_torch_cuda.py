@@ -367,6 +367,59 @@ def test_pipeline_on_the_card(cuda):
         assert torch.equal(gt, ct)
 
 
+def _photo_like(b, h, w, seed):
+    """Smooth gradients and noise: a CG and a Lloyd run of some length."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(b):
+        base = np.stack([127 + 100 * np.sin((xx + 17 * i) / 23.0),
+                         127 + 100 * np.cos(yy / (19.0 + i)),
+                         127 + 100 * np.sin((xx + yy) / 31.0)], -1)
+        out.append(base + rng.normal(0, 6, base.shape))
+    return np.clip(np.stack(out), 0, 255).astype(np.uint8)
+
+
+def test_compiled_run_is_the_eager_run(cuda):
+    """`Pipeline.run` on the card replays its graphs: the eager stages'
+    bytes and loop counts, K1-K4 counted from the replays (K3 a whole
+    number of CG chunks after the first residual), a second call on
+    other images that leaves the first call's outputs alone, and a second
+    shape with a program of its own."""
+    from image_segmenter_tpu_torch.pipeline import segment as SEG
+    from image_segmenter_tpu_torch.pipeline.compiled import drive
+    from image_segmenter_tpu_torch.solvers.matting import CG_CHUNK
+
+    pipe = SEG.Pipeline(model="u2netp", k=16, device="cuda")
+    x = torch.from_numpy(_photo_like(2, 240, 320, 0)).to(cuda)
+    first = pipe.run(x)  # warm-up and capture
+    mods = (KH, KP, KMV, KQ)
+    before = [m.LAUNCHES for m in mods]
+    out = pipe.run(x)
+    launches = [m.LAUNCHES - n for m, n in zip(mods, before)]
+    (prog,) = pipe.programs.values()
+    cg_it, lloyd_it = prog.iterations()
+    loops = []
+    eager = drive(SEG.batch_program(pipe.stages, pipe.session.module, x),
+                  loops)
+    for a, b, c in zip(out, first, eager):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(cg_it, loops[0].it) and torch.equal(lloyd_it,
+                                                           loops[1].it)
+    chunks = -(-int(cg_it.max()) // CG_CHUNK)
+    assert launches == [2, 1, 1 + CG_CHUNK * chunks, 1]
+
+    keep = [t.clone() for t in out]
+    other = pipe.run(torch.flip(x, dims=[0]))
+    assert all(torch.equal(a, b) for a, b in zip(out, keep))
+    assert not torch.equal(other.alpha, out.alpha)
+    y = torch.from_numpy(_photo_like(1, 200, 256, 1)).to(cuda)
+    got = pipe.run(y)
+    assert len(pipe.programs) == 2
+    for a, b in zip(got, pipe.run_eager(y)):
+        assert torch.equal(a, b)
+
+
 # the bench shape, a ragged one (the byte path) and rows of a multiple of
 # 16 (the 16-byte path at a small size)
 @pytest.mark.parametrize("bhw,k_real", [((4, 2160, 3840), 16),
