@@ -66,11 +66,18 @@ Phases, each raising (and exiting non-zero) on failure:
    stamps, and card against CPU on a 270 x 480 frame;
 10. GrabCut at BASELINE config 4's shape: apply_grabcut with the rect
    (w/8, h/12, 3w/4, 9h/10), 10 iterations and the split-merge polish on
-   three seeded 1024 x 768 portrait scenes: uint8 in {0..3}, known pixels
-   passed through, a bit-identical second call, the wall beside the
-   LAST_SOLVE_INFO stamps (which must sum to within 10 % of it), the cut
-   iterations and the polish time; run_grabcut_workflow once with
-   strokes; card against CPU on a 120 x 160 scene (foreground IoU >= 0.99);
+   three seeded 1024 x 768 portrait scenes, compiled (the units captured
+   as CUDA graphs at the first call): uint8 in {0..3}, known pixels
+   passed through, the first call (warm-up and captures, the programs and
+   graphs, the peak and reserved memory) and a bit-identical warm call,
+   the private eager path's bytes, cut iterations and restart flag on
+   every scene, both walls beside the LAST_SOLVE_INFO stamps (which must
+   sum to within 10 % of the compiled wall); one compiled and one eager
+   call under the profiler (device busy, idle share, operations, host
+   reads); the Chambolle-Pock loop's ms an iteration from a graph and
+   eagerly; run_grabcut_workflow once with strokes; mask_energy's lanes
+   against one-lane calls; card against CPU on a 120 x 160 scene
+   (foreground IoU >= 0.99);
 11. ISNet: rembg_remove_bgr_to_rgba(model="isnet-general-use") on phase
    7's 1536 x 2048 frame at the published 1024 x 1024 input (alpha in
    {0, 255}, K1 launched), card against CPU on 384 x 512 (sharp alpha
@@ -144,7 +151,8 @@ Phases, each raising (and exiting non-zero) on failure:
    the card's label and phase 4's K1, K2 and K4 launches;
    profile_stages.profile once on phase 4's batch (every stage row with
    its device view, its K1-K4 launches in one run equal to phase 4's, an
-   idle share in [0, 1]); BASELINE configs 1, 2 and 5 with one rep each.
+   idle share in [0, 1]); BASELINE configs 1, 2, 4 (GrabCut compiled)
+   and 5 with one rep each.
 18. the photo corpus (bench/corpus): its 14 PNGs decoded here against
    the sha256s of MANIFEST.json; bench/corpus_iou.run_image on china,
    flower, sky_01-up and a floor at 256 x 256 (mask IoU >= 0.99 against
@@ -193,6 +201,7 @@ from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
 from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
 from image_segmenter_tpu_torch.bench import micro_quantize as BENCH_QUANT
+from image_segmenter_tpu_torch.bench import profile_grabcut as PROFILE_GC
 from image_segmenter_tpu_torch.bench import profile_stages as PROFILE
 from image_segmenter_tpu_torch.compat import _perceptual as PERCEPTUAL
 from image_segmenter_tpu_torch.compat import color_simplify as CS
@@ -220,7 +229,7 @@ from image_segmenter_tpu_torch.ops.color import pack_rgb_u32 as PACK
 from image_segmenter_tpu_torch.parallel import mesh as PM
 from image_segmenter_tpu_torch.pipeline import segment as SEG
 from image_segmenter_tpu_torch.pipeline import train as TRAIN
-from image_segmenter_tpu_torch.pipeline.compiled import drive
+from image_segmenter_tpu_torch.pipeline.compiled import Compiled
 from image_segmenter_tpu_torch.pipeline.segment import Pipeline
 from image_segmenter_tpu_torch.pipeline.staged import StagedPipeline, \
     split_stage_meshes
@@ -231,6 +240,7 @@ from image_segmenter_tpu_torch.utils import profiling as PROF
 from image_segmenter_tpu_torch.utils import seeds as SEEDS
 from image_segmenter_tpu_torch.utils import svg_export as SVG
 from image_segmenter_tpu_torch.utils.backend import strict_f32
+from image_segmenter_tpu_torch.utils.loops import drive
 
 BATCH, H4K, W4K = 4, 2160, 3840
 MH, MW = 576, 1024          # matting size of a 2160 x 3840 frame
@@ -1513,19 +1523,76 @@ def _iou(a, b) -> float:
     return float((a & b).sum() / max((a | b).sum(), 1))
 
 
+_READS = ("__bool__", "item", "tolist", "cpu")
+
+
+def host_reads(fn):
+    """fn()'s result and the number of times it read a CUDA tensor on the
+    host (bool, item, tolist, cpu): each is a device-to-host copy that
+    waits for the card."""
+    n = [0]
+    own = {name: torch.Tensor.__dict__.get(name) for name in _READS}
+
+    def counted(real):
+        def read(self, *a, **k):
+            if self.is_cuda:
+                n[0] += 1
+            return real(self, *a, **k)
+        return read
+    for name in _READS:
+        setattr(torch.Tensor, name, counted(getattr(torch.Tensor, name)))
+    try:
+        out = fn()
+    finally:
+        for name, real in own.items():
+            if real is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, real)
+    return out, n[0]
+
+
+def _grabcut_solve(fn, bgr, init):
+    """One GrabCut call at config 4's settings: (mask, ms, the stamps,
+    the host reads)."""
+    (out, ms), reads = host_reads(lambda: _timed(
+        lambda: fn(bgr, init, iterations=10, device="cuda").cpu().numpy()))
+    return out, ms, dict(GC.LAST_SOLVE_INFO), reads
+
+
 def run_grabcut(label: str) -> None:
+    t_phase = time.perf_counter()
     h, w = GRABCUT_HW
     rect = SEEDS.config4_rect(h, w)
     x, y, rw, rh = rect
     outside = np.ones((h, w), bool)
     outside[y:y + rh, x:x + rw] = False
+    init = np.where(outside, GC.BGD, GC.PR_FGD).astype(np.uint8)
     zero_counts()
+    GC.clear_programs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     for seed in (21, 22, 23):
         bgr, subject = SEEDS.portrait_scene(h, w, seed)
-        first, ms_first = _timed(lambda: GRABCUT.apply_grabcut(
-            bgr, rect_xywh=rect, iterations=10))
-        out, ms = _timed(lambda: GRABCUT.apply_grabcut(
-            bgr, rect_xywh=rect, iterations=10))
+        (first, ms_first), reads = host_reads(lambda: _timed(
+            lambda: GRABCUT.apply_grabcut(bgr, rect_xywh=rect,
+                                          iterations=10)))
+        if seed == 21:
+            graphs = sum(p.graphs() for p in GC.programs())
+            print(f"[grabcut] first compiled call {h}x{w}: {ms_first:.3f} ms "
+                  f"with the warm-up (each loop stepped once) and the "
+                  f"captures of {len(GC.programs())} programs, {graphs} "
+                  f"graphs; device memory peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+                  f"reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB "
+                  f"({label})")
+            (out, ms), reads = host_reads(lambda: _timed(
+                lambda: GRABCUT.apply_grabcut(bgr, rect_xywh=rect,
+                                              iterations=10)))
+            if not np.array_equal(out, first):
+                fail(f"grabcut scene {seed}: a second call gives other bytes")
+        else:
+            out, ms = first, ms_first
         info = dict(GC.LAST_SOLVE_INFO)
         if out.dtype != np.uint8 or out.shape != (h, w):
             fail(f"grabcut: output is {out.dtype} {out.shape}")
@@ -1533,17 +1600,27 @@ def run_grabcut(label: str) -> None:
             fail("grabcut: mask values outside {0, 1, 2, 3}")
         if not (out[outside] == GC.BGD).all():
             fail("grabcut: a known background pixel changed")
-        if not np.array_equal(out, first):
-            fail(f"grabcut scene {seed}: a second call gives other bytes")
         stamps = {k: v for k, v in info.items() if k.startswith("t_")}
         share = sum(stamps.values()) * 1e3 / ms
         listed = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in stamps.items())
+        eager, ms_eager, e_info, e_reads = _grabcut_solve(
+            GC._grabcut_core_eager, bgr, init)
+        for key in ("cut_iters", "restart_accepted"):
+            if info.get(key) != e_info.get(key):
+                fail(f"grabcut scene {seed}: compiled {key} {info.get(key)}, "
+                     f"eager {e_info.get(key)}")
+        if not np.array_equal(out, eager):
+            fail(f"grabcut scene {seed}: the compiled call's bytes differ "
+                 f"from the eager call's on "
+                 f"{(out != eager).mean():.6f} of the pixels")
         print(f"[grabcut] apply_grabcut {h}x{w} scene {seed}, 10 iterations, "
-              f"split-merge polish: ok, second call identical, foreground IoU "
-              f"with the drawn subject {_iou(_fg_of(out), subject):.4f}; warm "
-              f"{ms:.3f} ms (first {ms_first:.3f}); stamps {listed} ms, "
-              f"{share * 100:.1f} % of the call; cut iterations "
-              f"{info['cut_iters']}, restart "
+              f"split-merge polish: ok, compiled call identical to the "
+              f"eager one (bytes, cut iterations, restart), foreground IoU "
+              f"with the drawn subject {_iou(_fg_of(out), subject):.4f}; "
+              f"compiled warm {ms:.3f} ms, eager {ms_eager:.3f} ms (host "
+              f"reads of the call: compiled {reads}, eager {e_reads}); "
+              f"stamps {listed} ms, {share * 100:.1f} % of the call; cut "
+              f"iterations {info['cut_iters']}, restart "
               f"{info.get('restart_accepted', 'not run')} ({label})")
         if not 0.9 <= share <= 1.1:
             fail(f"grabcut: the stage stamps sum to {share:.3f} of the "
@@ -1569,21 +1646,33 @@ def run_grabcut(label: str) -> None:
           f"share {(rgba[..., 3] > 0).mean():.4f}; {ms:.3f} ms ({label})")
 
     # the Chambolle-Pock loop alone, at the full image (one lane) and at
-    # the polish's coarse search (ten lanes): ms per iteration. The loop
-    # runs whole chunks, so it ran ceil(max it / chunk) chunks
+    # the polish's coarse search (ten lanes): ms per iteration from a graph
+    # and eagerly. The loop runs whole chunks, so it ran
+    # ceil(max it / chunk) chunks
     g = torch.Generator(device="cuda").manual_seed(25)
     for lanes, (ch, cw) in ((1, (h, w)), (10, (256, 192))):
         unary = torch.randn((lanes, ch, cw), generator=g, device="cuda") * 4
         wts = GC._nlink_weights(
             torch.rand((3, ch, cw), generator=g, device="cuda") * 255)
         free = torch.zeros((lanes, ch, cw), dtype=torch.bool, device="cuda")
+        args = (unary, wts, free, free)
+        prog = Compiled(PROFILE_GC.cut_program(500, GC.CP_CHUNK),
+                        [(t.shape, t.dtype) for t in args],
+                        torch.device("cuda"))
+        prog(*args)  # warm-up and capture
+        (_, it, _), ms = _timed(lambda: prog(*args))
         GC.tv_mincut(unary, wts, free, free, max_iter=100)  # warm-up
-        (_, it, _), ms = _timed(lambda: GC.tv_mincut(unary, wts, free, free,
-                                                     max_iter=500))
-        ran = min(500, -(-int(it.max()) // GC._CHUNK) * GC._CHUNK)
+        (_, it_e, _), ms_e = _timed(lambda: GC.tv_mincut(
+            unary, wts, free, free, max_iter=500))
+        if not torch.equal(it, it_e):
+            fail(f"grabcut: the cut from a graph ran {it.tolist()} "
+                 f"iterations, eagerly {it_e.tolist()}")
+        ran = min(500, -(-int(it.max()) // GC.CP_CHUNK) * GC.CP_CHUNK)
         print(f"[grabcut] Chambolle-Pock loop {lanes}x{ch}x{cw}: "
-              f"{ms / ran:.4f} ms per iteration over {ran} iterations, one "
-              f"host read per {GC._CHUNK} ({label})")
+              f"{ms / ran:.4f} ms per iteration from a graph, "
+              f"{ms_e / ran:.4f} eagerly, over {ran} iterations, one host "
+              f"read per {GC.CP_CHUNK} ({label})")
+        del prog
 
     # the evaluator gives a lane the same bits at any lane count: ten lanes
     # as the polish ranks its candidates, two as the full-resolution
@@ -1622,6 +1711,8 @@ def run_grabcut(label: str) -> None:
           f"{res['cpu_ms']:.1f} ms ({label})")
     if iou < 0.99:
         fail(f"grabcut: card-vs-CPU foreground IoU {iou} < 0.99")
+    print(f"[grabcut] phase 10: {time.perf_counter() - t_phase:.1f} s "
+          f"({label})")
 
 
 # ---------------------------------------------------------------------------
@@ -2766,13 +2857,24 @@ def run_programs(label: str, slice_launches: dict) -> None:
           f"{res['compiled_idle_share_unprofiled']:.4f}); launches as "
           f"phase 4's ({label})")
 
-    for config in (BASELINE.config_1, BASELINE.config_2, BASELINE.config_5):
+    for config in (BASELINE.config_1, BASELINE.config_2, BASELINE.config_4,
+                   BASELINE.config_5):
         with contextlib.redirect_stderr(sys.stdout):
             r = config(reps=1, device="cuda")
         if not r["mp_s"] > 0:
             fail(f"BASELINE config {r['config']}: {r}")
         print(f"[programs] BASELINE config {r['config']} ({r['desc']}; "
               f"{r['content']}): {r['mp_s']:.3f} MP/s, one rep ({label})")
+        if r["config"] == 4:
+            gc_info = r["grabcut"]["last_solve_info"]
+            print(f"[programs] BASELINE config 4: compiled GrabCut "
+                  f"{r['grabcut']['s']:.3f} s for {len(r['crops'])} crops "
+                  f"({r['grabcut']['s'] / len(r['crops']):.3f} s a call; "
+                  f"the last: cut iterations {gc_info['cut_iters']}, "
+                  f"t_init {gc_info['t_init']:.3f} s, t_em "
+                  f"{gc_info['t_em']:.3f} s, t_polish "
+                  f"{gc_info.get('t_polish', 0.0):.3f} s), matting "
+                  f"{r['matting']['s']:.3f} s ({label})")
     print(f"[programs] phase 17: {time.perf_counter() - t_phase:.1f} s "
           f"({label})")
 

@@ -10,9 +10,13 @@ OpenCV-convention HSV (hsv_clustering's normalisation, weight 1 where
 V > 30), k 16, n_init 10.
 
 1. The fit as hsv_clustering runs it (`solvers/kmeans.kmeans_fit`, the
-   ten restarts in lock step), synchronised calls.
+   ten restarts in lock step), synchronised calls; and the same fit with
+   its `RestartLoop` stepped to its end (`utils.loops.Loop.run`), the
+   branchless reseed a compiled program runs, which ranks the farthest
+   points every iteration where `RestartLoop.run` ranks them only when a
+   cluster is empty. Both must give the same centres.
 2. One lock-step Lloyd iteration on its own, from ten fixed random sets
-   of centres (`_lloyd_restarts`' assignment and sums over every block of
+   of centres (`RestartLoop`'s assignment and sums over every block of
    points, then the centre update), synchronised calls and a CUDA graph;
    the whole fit's time over it is the number of iterations it implies.
 3. The bytes that iteration's operations read and write, counted from
@@ -37,6 +41,7 @@ from image_segmenter_tpu_torch.ops.color import rgb_u8_to_hsv_cv
 from image_segmenter_tpu_torch.ops.scan import tree_sum
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.utils.backend import resolve_device
+from image_segmenter_tpu_torch.utils.loops import Loop
 
 K, R = 16, 10
 
@@ -49,7 +54,7 @@ def hsv_points(h: int, w: int, dev):
 
 
 def one_iteration(ptsT: torch.Tensor, w: torch.Tensor, call: torch.Tensor):
-    """One Lloyd step of every restart, as `_lloyd_restarts` takes it:
+    """One Lloyd step of every restart, as `RestartLoop` takes it:
     ptsT (nb, 3, block), w (nb, block), call (R, k, 3) -> the new centres
     and each restart's inertia."""
     nb = ptsT.shape[0]
@@ -83,6 +88,17 @@ def main(argv=None, device="cuda") -> int:
     full = sync_ms(lambda: KM.kmeans_fit(pts, wts, K, n_init=R).centers,
                    dev, args.reps)
 
+    def branchless_fit():
+        prog = KM.kmeans_fit_program(pts, wts, K, n_init=R)
+        Loop.run(next(prog))  # the ten restarts' one loop
+        try:
+            prog.send(None)
+        except StopIteration as stop:
+            return stop.value.centers
+    branchless = sync_ms(branchless_fit, dev, args.reps)
+    same = torch.equal(branchless_fit(),
+                       KM.kmeans_fit(pts, wts, K, n_init=R).centers)
+
     padded, pw = KM._pad_points(pts[None], wts[None])
     ptsT = padded[0].transpose(1, 2).contiguous()
     w = pw[0]
@@ -103,7 +119,9 @@ def main(argv=None, device="cuda") -> int:
                   "k": K, "n_init": R},
         "reps": args.reps, "timing": "median of synchronised calls, host "
         "clock; graph_ms from a CUDA graph replay",
-        "fit": full, "one_iteration": it,
+        "fit": full, "fit_branchless": branchless,
+        "branchless_over_fit": branchless["ms"] / full["ms"],
+        "same_centres": same, "one_iteration": it,
         "implied_iterations": full["ms"] / t_iter,
         "one_iteration_ops": counts["ops"],
         "one_iteration_bytes": moved,

@@ -36,10 +36,10 @@ from image_segmenter_tpu_torch.bench.bench import launches_of, photo_batch, \
     synthetic_batch, timed_calls
 from image_segmenter_tpu_torch.bench.micro_common import REPS, emit
 from image_segmenter_tpu_torch.pipeline import segment as SEG
-from image_segmenter_tpu_torch.pipeline.compiled import drive
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.solvers import matting as MAT
 from image_segmenter_tpu_torch.utils.backend import resolve_device
+from image_segmenter_tpu_torch.utils.loops import drive
 
 CONTENT = {"photo": photo_batch, "synthetic": synthetic_batch}
 

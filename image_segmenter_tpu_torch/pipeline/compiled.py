@@ -1,42 +1,38 @@
-"""The compiled main path: one program a shape, replayed from CUDA graphs.
+"""Compiled programs: one program a shape, replayed from CUDA graphs.
 
-Counterpart of the JAX package's `jax.jit` of `Pipeline`'s batch function
-(image_segmenter_tpu/pipeline/segment.py:307-352): the JAX `Pipeline`
-compiles once per input shape and enqueues the compiled program with no
-host read, its two loops (the matting CG, the Lloyd iterations of
-`kmeans_fit_det`) running on the device as `lax.while_loop`s.
+Counterpart of the JAX package's `jax.jit`: the JAX `Pipeline` compiles
+its batch function once per input shape (image_segmenter_tpu/pipeline/
+segment.py:307-352), and GrabCut its init, one alternation, the
+standardized energy and the split candidates (image_segmenter_tpu/
+solvers/grabcut.py:246-383); each enqueues with no host read, its loops
+(the matting CG, the Lloyd iterations, the Chambolle-Pock cut) running
+on the device as `lax.while_loop`s.
 
-Here a program is a generator function of the static input batch. It
-runs the pipeline's tensor code and yields each loop it reaches, an
-object with
-
-- `step()`: a fixed chunk of iterations on the card, no host read, its
-  loop-carried state updated in place (solvers/matting.CGLoop,
-  solvers/kmeans.LloydLoop);
-- `flag`: a 0-dim bool tensor on the card, whether any image is still
-  active;
-- `it`: the (B,) int32 iterations each image has run;
-- `run()`: `step()` until the flag clears, the eager loop;
-
-and returns its outputs, a tuple of tensors.
-
-`drive` runs a program eagerly: each loop it yields runs to its end.
-
-`Compiled` is one program for one input shape, run as CUDA graphs. At its
-first call it warms the program up eagerly on a side stream, as
-`torch.cuda.graph` requires (cuDNN and cuBLAS handles, the resize weights,
-the kernels' library and K1's scratch are made there), and then captures,
-into one private memory pool, the code between two yields as one graph
-and each loop's `step()` as another. Capture does not execute, so each
-graph is replayed before the next is captured: the segment before a loop
-leaves its state and flag, and the loop's graph is replayed until the
-flag clears, one host read a chunk. Every graph of the program is captured
-at the first call, whether or not its loop runs, and later calls replay
+Here a program is a generator function of its static input tensors that
+yields each loop it reaches and returns a tuple of tensors
+(utils/loops.py). `Compiled` is one program for one tuple of input
+shapes, run as CUDA graphs. At its first call it runs the program
+eagerly with each loop stepped once (`utils.loops.warm_up`), on the
+device's capture stream, as `torch.cuda.graph` requires: the cuDNN and
+cuBLAS handles and workspaces, the resize weights, the kernels' library,
+K1's scratch and the PRNG's key words are made there. Then it captures,
+into its memory pool, the code between two yields as one graph and each
+loop's `step()` as another. Capture does not execute, so each graph is
+replayed before the next is captured: the segment before a loop leaves
+its state and flag, and the loop's graph is replayed until the flag
+clears, one host read a chunk. Every graph of the program is captured at
+the first call, whether or not its loop runs, and later calls replay
 them in the order of capture, which is what makes one pool safe to share
-between them. Each call copies the caller's batch into the static input
-and returns clones of the static outputs, so each call's arrays are its
-own, as JAX's are. A capture or a replay that fails raises; nothing falls
-back to eager code.
+between them. Each call copies the caller's tensors into the static
+inputs and returns clones of the static outputs, so each call's arrays
+are its own, as JAX's are. A capture or a replay that fails raises;
+nothing falls back to eager code.
+
+Programs may share a pool (`pool`): every value a call reads from the
+pool is written earlier in the same call, and no two programs run at
+once, so one program's replay may overwrite another's freed blocks.
+All programs of a device capture on one stream, so the blocks one freed
+are reused by the next.
 
 The kernels' wrappers count their launches in Python, which a replay does
 not run. So the launches a capture counted are taken back and kept with
@@ -52,25 +48,14 @@ from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
+from image_segmenter_tpu_torch.utils.loops import warm_up
 
 # the launch counters of the main path's kernels, K1-K4
 COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
             (KQ, "LAUNCHES"))
 
-
-def drive(program, loops: list | None = None):
-    """Run a program (a generator) eagerly: every loop it yields runs to
-    its end, and joins `loops` where a list is given. Returns what the
-    program returns."""
-    try:
-        loop = next(program)
-        while True:
-            loop.run()
-            if loops is not None:
-                loops.append(loop)
-            loop = program.send(None)
-    except StopIteration as stop:
-        return stop.value
+# the capture stream of each device, shared by its programs
+_STREAMS: dict = {}
 
 
 def _counts() -> list:
@@ -105,28 +90,41 @@ class _Graph:
 
 
 class Compiled:
-    """`program` (a generator function of one (shape, dtype) tensor on
-    `device`) captured at the first call and replayed after that."""
+    """`program` (a generator function of tensors of `specs`, a sequence
+    of (shape, dtype), on `device`) captured at the first call and
+    replayed after that. `pool`: a memory pool shared with other programs
+    (`torch.cuda.graph_pool_handle()`), or None for a pool of its own."""
 
-    def __init__(self, program, shape, dtype: torch.dtype,
-                 device: torch.device):
+    def __init__(self, program, specs, device: torch.device, pool=None):
         if device.type != "cuda":
             raise ValueError(f"Compiled runs CUDA graphs, not on {device}")
         self.program = program
-        self.input = torch.empty(shape, dtype=dtype, device=device)
-        self._stream = torch.cuda.Stream(device)
-        self._pool = torch.cuda.graph_pool_handle()
+        self.inputs = tuple(torch.empty(shape, dtype=dtype, device=device)
+                            for shape, dtype in specs)
+        key = str(device)
+        if key not in _STREAMS:
+            _STREAMS[key] = torch.cuda.Stream(device)
+        self._stream = _STREAMS[key]
+        self._pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self._graphs = []
         self._out = None
 
-    def __call__(self, x: torch.Tensor) -> tuple:
-        self.input.copy_(x)
+    def __call__(self, *xs: torch.Tensor) -> tuple:
+        if len(xs) != len(self.inputs):
+            raise ValueError(f"the program takes {len(self.inputs)} tensors, "
+                             f"got {len(xs)}")
+        for dst, x in zip(self.inputs, xs):
+            dst.copy_(x)
         if self._out is None:
             self._capture()
         else:
             for g in self._graphs:
                 g.replay()
         return tuple(t.clone() for t in self._out)
+
+    def graphs(self) -> int:
+        """The number of graphs the program was captured as."""
+        return len(self._graphs)
 
     def iterations(self) -> list:
         """Each loop's (B,) iteration counts in the last call, in the
@@ -137,8 +135,15 @@ class Compiled:
         """Capture fn() into this program's pool and replay it."""
         graph = torch.cuda.CUDAGraph()
         before = _counts()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            fn()
+        # capture_begin / capture_end, not `torch.cuda.graph`, whose entry
+        # runs the garbage collector and empties the allocator's cache: a
+        # program of many loops captures many graphs
+        with torch.cuda.stream(self._stream):
+            graph.capture_begin(pool=self._pool)
+            try:
+                fn()
+            finally:
+                graph.capture_end()
         launches = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-n for n in launches])  # a capture launches nothing
         g = _Graph(graph, launches, loop)
@@ -146,13 +151,13 @@ class Compiled:
         g.replay()
 
     def _capture(self) -> None:
-        cur = torch.cuda.current_stream(self.input.device)
+        cur = torch.cuda.current_stream(self.inputs[0].device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
-            drive(self.program(self.input))  # the warm-up
+            warm_up(self.program(*self.inputs))
         cur.wait_stream(self._stream)
 
-        gen = self.program(self.input)
+        gen = self.program(*self.inputs)
         got = {}
 
         def segment():

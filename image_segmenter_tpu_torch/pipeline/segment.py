@@ -51,10 +51,11 @@ from image_segmenter_tpu_torch.ops import morphology as M
 from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, \
     same_device, split_bounds, to_slot
-from image_segmenter_tpu_torch.pipeline.compiled import Compiled, drive
+from image_segmenter_tpu_torch.pipeline.compiled import Compiled
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.solvers.matting import CGLoop
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
+from image_segmenter_tpu_torch.utils.loops import drive
 
 
 class PipelineOutput(NamedTuple):
@@ -388,7 +389,7 @@ class Pipeline:
         if prog is None:
             stages, module = self.stages, self.session.module
             prog = Compiled(lambda imgs: batch_program(stages, module, imgs),
-                            x.shape, x.dtype, self.device)
+                            [(x.shape, x.dtype)], self.device)
             out = PipelineOutput(*prog(x))
             self.programs[key] = prog  # kept once its capture succeeded
             return out

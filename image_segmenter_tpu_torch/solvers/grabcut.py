@@ -13,11 +13,11 @@ thresholded at 0.5, with known pixels clamped.
 Lanes. Every function takes a leading lane axis C: C = 1 for the plain
 alternation, C = 2K = 10 for the split-merge polish's candidates. The JAX
 package vmaps one alternation over its candidates; under vmap each lane's
-`while_loop` freezes when its own condition goes false. `tv_mincut` keeps
+`while_loop` freezes when its own condition goes false. `CPLoop` keeps
 that per lane: its body updates a lane only while the lane is active, and
-the host reads whether any lane is active once per chunk of `_CHUNK`
-iterations. A frozen lane's state does not change, so the chunked loop
-gives the bits of a loop that checks every iteration.
+a step runs a chunk of `CP_CHUNK` iterations. A frozen lane's state does
+not change, so the chunked loop gives the bits of a loop that checks
+every iteration.
 
 Sums. The GMM moments are sums of integer-valued products (u8 pixels,
 0/1 weights): they run in float64, where they are exact in any order, and
@@ -30,17 +30,36 @@ determinants are the closed-form adjugate in float64: `torch.linalg.inv`
 checks its result on the host, a device-to-host sync on every call on
 CUDA, and the closed form needs no factorisation of a 3 x 3 matrix.
 
+Programs. The JAX package jits `_grabcut_init`, one alternation (plain
+and vmapped over candidates), `mask_energy` (plain and vmapped) and the
+split candidates. Here each of those units is a program
+(pipeline/compiled.py), a generator that yields its loops: the
+Chambolle-Pock cut (`CPLoop`) and each k-means restart that seeds the
+GMMs, every lane's in lock step (solvers/kmeans.RestartLoop). The
+polish's round, from the split
+candidates to the accepted winner, is one program. On the card every
+unit is compiled once per shapes and static arguments and replayed from
+CUDA graphs, the units of one image shape in one memory pool, those of
+the last `PROGRAM_SHAPES` shapes kept (`_PROGRAMS`); on the CPU the same
+programs run eagerly.
+
 Host reads. The alternations enqueue back to back (the JAX package's
-async dispatch): one read per chunk of the cut. The polish keeps its
-accept and carry decisions on the device (`torch.where`) and reads the
-host at most twice, as the JAX package does. The k-means fits that seed
-each GMM (solvers/kmeans.kmeans_fit) read one flag per Lloyd iteration,
-and the polish's evaluator fits one per candidate, one candidate after
-another.
+async dispatch), and one D2H read of the mask fences the EM chain. In a
+compiled unit each loop reads its stop flag once a chunk it runs and once
+to stop: a cut once per `CP_CHUNK` iterations, a k-means restart once per
+`kmeans.RESTART_CHUNK` Lloyd iterations. The collapse test reads the
+mask, its restart one accept flag, and the polish keeps its accept and
+carry decisions on the device (`torch.where`) and reads the host at most
+twice, as the JAX package does. Eagerly (the CPU, and
+`_grabcut_core_eager` on the card) the cuts read once a chunk too and the
+k-means fits once per Lloyd iteration.
 """
 
 from __future__ import annotations
 
+import collections
+import contextvars
+import gc
 import time
 from typing import NamedTuple, Optional
 
@@ -50,8 +69,10 @@ import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.ops import resize as RZ
+from image_segmenter_tpu_torch.pipeline.compiled import Compiled
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.utils.backend import resolve_device
+from image_segmenter_tpu_torch.utils.loops import Loop, drive
 
 GAMMA = 50.0
 K_COMP = DEFAULTS.grabcut_gmm_components
@@ -77,7 +98,12 @@ _DIRS = [  # (dy, dx, inv_dist): right/down/down-right/down-left cover all
 # 3 log(2 pi) in float32, as jnp evaluates it
 _LOG_2PI_3 = float(np.float32(3.0) * np.log(np.float32(2.0 * np.pi)))
 
-_CHUNK = 50  # Chambolle-Pock iterations between two host reads
+# Chambolle-Pock iterations a step runs, between two host reads. Swept by
+# `bench/profile_grabcut.py --chunks` over 10, 25, 50 and 100 on the card:
+# 25 is the least at 1 x 1024 x 768 and at 10 x 256 x 192 (a read costs
+# about 35 us, a wasted iteration 0.13-0.17 ms). It divides the cut's cap
+# of 2500, so a capped loop ends on a chunk's end
+CP_CHUNK = 25
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -91,6 +117,13 @@ def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _one_hot(labels: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., k) float64 0/1 rows of `labels` in [0, k): F.one_hot's values
+    with no check of the labels on the host."""
+    bins = torch.arange(k, device=labels.device)
+    return (labels[..., None] == bins).to(torch.float64)
 
 
 # --------------------------------------------------------------------------
@@ -152,8 +185,7 @@ def _component_moments(pixels, weights_px, comp, k):
     float32. Summed in float64: u8 pixels and 0/1 weights make every
     partial sum an integer, exact in any order."""
     c, n = weights_px.shape
-    oh = F.one_hot(comp, k).to(torch.float64) \
-        * weights_px.to(torch.float64)[..., None]               # (C, N, k)
+    oh = _one_hot(comp, k) * weights_px.to(torch.float64)[..., None]  # (C, N, k)
     p = pixels.to(torch.float64)
     pp = torch.cat([p, (p[:, :, None] * p[:, None, :]).reshape(n, 9)], dim=1)
     m = torch.matmul(oh.transpose(1, 2), pp)                     # (C, k, 12)
@@ -190,16 +222,16 @@ def _assign(pixels: torch.Tensor, gmm: GMM) -> torch.Tensor:
     return torch.argmax(_loglik(pixels, gmm), dim=-1)
 
 
-def _init_gmm(pixels: torch.Tensor, weights_px: torch.Tensor,
-              seed: int) -> GMM:
-    """kmeans-seeded GMM per lane: weights_px (C, N). The lanes' k-means
-    fits run one after another."""
-    comps = []
-    for wl in weights_px:
-        res = KM.kmeans_fit(pixels, wl, K_COMP, n_init=3, max_iter=30,
-                            seed=seed)
-        comps.append(KM.assign_labels(pixels[None], res.centers[None])[0])
-    comp = torch.stack(comps)
+def _init_gmm(pixels: torch.Tensor, weights_px: torch.Tensor, seed: int):
+    """kmeans-seeded GMM per lane, a program: weights_px (C, N). The
+    lanes' k-means fits run in lock step, as the JAX package vmaps them
+    (`kmeans.kmeans_fit_lanes_program`, which yields a loop a restart),
+    each lane with the bits of a fit of its own."""
+    c = weights_px.shape[0]
+    res = yield from KM.kmeans_fit_lanes_program(pixels, weights_px, K_COMP,
+                                                 n_init=3, max_iter=30,
+                                                 seed=seed)
+    comp = KM.assign_labels(pixels[None].expand(c, -1, -1), res.centers)
     return _gmm_from_moments(*_component_moments(pixels, weights_px, comp,
                                                  K_COMP))
 
@@ -243,68 +275,81 @@ def _nlink_weights(img: torch.Tensor) -> torch.Tensor:
 # min-cut via Chambolle-Pock anisotropic weighted TV
 # --------------------------------------------------------------------------
 
-def tv_mincut(unary: torch.Tensor, edge_weights: torch.Tensor,
-              fixed_fg: torch.Tensor, fixed_bg: torch.Tensor,
-              max_iter: int = 2000, warm_y: Optional[torch.Tensor] = None,
-              chunk: int = _CHUNK):
+class CPLoop(Loop):
     """min_{u in [0,1]} sum a_p u_p + sum w_pq |u_p - u_q| per lane, u
-    clamped on fixed pixels. a_p = D_fg(p) - D_bg(p) (positive pushes to
-    BG = 0).
+    clamped on fixed pixels, as a loop its caller drives (pipeline/
+    compiled.py): a diagonally preconditioned Chambolle-Pock iteration.
+    a_p = D_fg(p) - D_bg(p) (positive pushes to BG = 0).
 
     unary (C, H, W); edge_weights (4, H, W), shared by the lanes;
     fixed_fg, fixed_bg (C, H, W) bool; warm_y (C, 4, H, W), the previous
-    alternation's dual state, or None. Returns (u (C, H, W), iterations
-    (C,) int32, y (C, 4, H, W)); threshold u at 0.5 for the cut.
+    alternation's dual state, or None. After the loop, `u` (C, H, W) is
+    the relaxed cut (threshold it at 0.5), `it` (C,) int32 each lane's
+    iterations and `y` (C, 4, H, W) the dual state.
 
     A lane runs while it < max_iter and (its last max |u_new - u| >
-    2e-5 or it < 50). The host reads whether any lane still runs once per
-    `chunk` iterations; a stopped lane is frozen, so every chunk length
-    gives the same bits.
-    """
-    c, h, w = unary.shape
-    dev = unary.device
-    wts = edge_weights
-    # Diagonal preconditioning (Pock & Chambolle 2011) for the unweighted
-    # difference operator: each edge row sums to 2 -> sigma = 1/2; each
-    # pixel column sums to its incident edge count -> tau_p = 1/deg_p.
-    deg = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    for i, (dy, dx, _) in enumerate(_DIRS):
-        has_e = (wts[i] > 0).to(torch.float32)
-        deg = deg + has_e + _shift(has_e, -dy, -dx)
-    tau = torch.reciprocal(torch.clamp_min(deg, 1.0))
-    sigma = 0.5
-    # clamp(u) = where(fg, 1, where(bg, 0, clip(u, 0, 1)))
-    lo = fixed_fg.to(torch.float32)
-    hi = (~fixed_bg).to(torch.float32)
-    neg_wts = -wts
+    2e-5 or it < 50). `step` runs `chunk` (default `CP_CHUNK`) iterations
+    with u, ubar, y, it and delta written in place and `flag` set to
+    whether any lane still runs, with no host read, so a CUDA graph can
+    capture it. A stopped lane is frozen, so every chunk length gives the
+    same bits."""
 
-    u = torch.clamp((unary <= 0).to(torch.float32), lo, hi)
-    ubar = u
-    if warm_y is None:
-        y = torch.zeros((c, 4, h, w), dtype=torch.float32, device=dev)
-    else:
-        # project the carried dual into the new weights' feasible box
-        y = torch.clamp(warm_y, neg_wts, wts)
-    it = torch.zeros((c,), dtype=torch.int32, device=dev)
-    delta = torch.full((c,), float("inf"), device=dev)
+    def __init__(self, unary: torch.Tensor, edge_weights: torch.Tensor,
+                 fixed_fg: torch.Tensor, fixed_bg: torch.Tensor,
+                 max_iter: int = 2000, warm_y: Optional[torch.Tensor] = None,
+                 chunk: Optional[int] = None):
+        c, h, w = unary.shape
+        dev = unary.device
+        wts = edge_weights
+        self.unary, self.wts, self.max_iter = unary, wts, max_iter
+        self.chunk = CP_CHUNK if chunk is None else int(chunk)
+        # Diagonal preconditioning (Pock & Chambolle 2011) for the
+        # unweighted difference operator: each edge row sums to 2 ->
+        # sigma = 1/2; each pixel column sums to its incident edge count
+        # -> tau_p = 1/deg_p.
+        deg = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        for i, (dy, dx, _) in enumerate(_DIRS):
+            has_e = (wts[i] > 0).to(torch.float32)
+            deg = deg + has_e + _shift(has_e, -dy, -dx)
+        self.tau = torch.reciprocal(torch.clamp_min(deg, 1.0))
+        # clamp(u) = where(fg, 1, where(bg, 0, clip(u, 0, 1)))
+        self.lo = fixed_fg.to(torch.float32)
+        self.hi = (~fixed_bg).to(torch.float32)
+        self.neg_wts = -wts
 
-    def running(it, delta):
-        return (it < max_iter) & ((delta > 2e-5) | (it < 50))
+        self.u = torch.clamp((unary <= 0).to(torch.float32), self.lo, self.hi)
+        self.ubar = self.u.clone()
+        if warm_y is None:
+            self.y = torch.zeros((c, 4, h, w), dtype=torch.float32,
+                                 device=dev)
+        else:
+            # project the carried dual into the new weights' feasible box
+            self.y = torch.clamp(warm_y, self.neg_wts, wts)
+        self.it = torch.zeros((c,), dtype=torch.int32, device=dev)
+        self.delta = torch.full((c,), float("inf"), device=dev)
+        self.flag = self._running(self.it, self.delta).any()
 
-    def body(u, ubar, y, it, delta):
-        active = running(it, delta)
+    def _running(self, it, delta):
+        return (it < self.max_iter) & ((delta > 2e-5) | (it < 50))
+
+    def _body(self, u, ubar, y, it, delta):
+        h, w = u.shape[-2:]
+        sigma = 0.5
+        active = self._running(it, delta)
         # dual ascent: y_e <- proj_{|y| <= w}(y + sigma (ubar_p - ubar_q))
         pu = F.pad(ubar, (1, 1, 1, 1))
         nb = torch.stack([pu[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
                           for dy, dx, _ in _DIRS], dim=1)
-        y_new = torch.clamp(y + sigma * (ubar[:, None] - nb), neg_wts, wts)
+        y_new = torch.clamp(y + sigma * (ubar[:, None] - nb), self.neg_wts,
+                            self.wts)
         py = F.pad(y_new, (1, 1, 1, 1))
         div = None
         for i, (dy, dx, _) in enumerate(_DIRS):
             back = py[:, i, 1 - dy:1 - dy + h, 1 - dx:1 - dx + w]
             div = y_new[:, i] - back if div is None \
                 else div + y_new[:, i] - back
-        u_new = torch.clamp(u - tau * (unary + div), lo, hi)
+        u_new = torch.clamp(u - self.tau * (self.unary + div), self.lo,
+                            self.hi)
         ubar_new = 2.0 * u_new - u
         d_new = torch.abs(u_new - u).amax(dim=(1, 2))
         a3 = active[:, None, None]
@@ -312,15 +357,28 @@ def tv_mincut(unary: torch.Tensor, edge_weights: torch.Tensor,
                 torch.where(a3[:, None], y_new, y),
                 it + active.to(torch.int32), torch.where(active, d_new, delta))
 
-    done = 0
-    while done < max_iter:
-        n = min(chunk, max_iter - done)
-        for _ in range(n):
-            u, ubar, y, it, delta = body(u, ubar, y, it, delta)
-        done += n
-        if not bool(running(it, delta).any()):  # one host read a chunk
-            break
-    return u, it, y
+    def step(self) -> None:
+        """`chunk` iterations; stopped lanes keep their state. No host
+        read."""
+        state = (self.u, self.ubar, self.y, self.it, self.delta)
+        for _ in range(self.chunk):
+            state = self._body(*state)
+        for dst, src in zip((self.u, self.ubar, self.y, self.it, self.delta),
+                            state):
+            dst.copy_(src)
+        torch.any(self._running(self.it, self.delta), out=self.flag)
+
+
+def tv_mincut(unary: torch.Tensor, edge_weights: torch.Tensor,
+              fixed_fg: torch.Tensor, fixed_bg: torch.Tensor,
+              max_iter: int = 2000, warm_y: Optional[torch.Tensor] = None,
+              chunk: Optional[int] = None):
+    """The cut of `CPLoop` run eagerly: one host read a chunk. Returns
+    (u (C, H, W), iterations (C,) int32, y (C, 4, H, W))."""
+    loop = CPLoop(unary, edge_weights, fixed_fg, fixed_bg, max_iter=max_iter,
+                  warm_y=warm_y, chunk=chunk)
+    loop.run()
+    return loop.u, loop.it, loop.y
 
 
 # --------------------------------------------------------------------------
@@ -345,21 +403,147 @@ def _fg_of(m: torch.Tensor) -> torch.Tensor:
     return ((m == FGD) | (m == PR_FGD)).to(torch.float32)
 
 
-def _grabcut_init(im: Image, init_mask: torch.Tensor, seed: int = 42):
-    """GMMs seeded from the init mask (H, W): one lane each."""
+# --------------------------------------------------------------------------
+# units: the programs the JAX package jits, compiled on the card
+# --------------------------------------------------------------------------
+
+# The units' compiled programs in groups, one an image shape and device:
+# a `grabcut_core` call's units (its coarse search's too) join the group
+# of its image, a unit called alone the group of its own image. A group's
+# programs share one memory pool. The `PROGRAM_SHAPES` groups used last
+# are kept, the least recently used one past them is dropped and its
+# pool released: the device memory the compiled units hold stays bounded
+# however many image shapes a process cuts.
+PROGRAM_SHAPES = 2
+_PROGRAMS: collections.OrderedDict = collections.OrderedDict()
+# the group of the running `grabcut_core` call: its image's (H, W)
+_SHAPE = contextvars.ContextVar("grabcut_shape", default=None)
+# true inside `_grabcut_core_eager`: the units run op by op on the card
+_EAGER = contextvars.ContextVar("grabcut_eager", default=False)
+_TENSOR = "tensor"
+
+
+class _Group(dict):
+    """The compiled units of one group, by (program, argument
+    structure, shapes and dtypes, static arguments), each with its
+    output structure, and the memory pool they share, made at the first
+    capture."""
+
+    pool = None
+
+
+def _group(key) -> _Group:
+    """The group `key`, made the most recently used; the least recently
+    used groups past `PROGRAM_SHAPES` are dropped and their pools
+    released."""
+    group = _PROGRAMS.pop(key, None)
+    _PROGRAMS[key] = group = _Group() if group is None else group
+    if len(_PROGRAMS) > PROGRAM_SHAPES:
+        while len(_PROGRAMS) > PROGRAM_SHAPES:
+            _PROGRAMS.popitem(last=False)
+        _release()
+    return group
+
+
+def _release() -> None:
+    """Give the memory of dropped programs back to the device."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def programs() -> list:
+    """The compiled units kept, every group's."""
+    return [prog for group in _PROGRAMS.values()
+            for prog, _ in group.values()]
+
+
+def _flatten(x, leaves: list):
+    """The tensors of a nest of tuples (GMM, Image) and None, in order,
+    appended to `leaves`; returns the nest's structure."""
+    if torch.is_tensor(x):
+        leaves.append(x)
+        return _TENSOR
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return type(x), tuple(_flatten(c, leaves) for c in x)
+    raise TypeError(f"a unit takes tensors, tuples and None, not {type(x)}")
+
+
+def _unflatten(spec, leaves):
+    """The nest of `spec` from an iterator of its tensors."""
+    if spec is _TENSOR:
+        return next(leaves)
+    if spec is None:
+        return None
+    typ, children = spec
+    values = [_unflatten(c, leaves) for c in children]
+    return tuple(values) if typ is tuple else typ(*values)
+
+
+def _run(program, *args, **static):
+    """A unit: `program(*args, **static)`, a generator function of tensor
+    arguments (nests of them, as GMM and Image) and static Python ones.
+
+    On the CPU, and on the card under `_grabcut_core_eager`, it runs
+    eagerly (`drive`). On the card it is compiled once per argument
+    shapes and static arguments (pipeline/compiled.Compiled, in the pool
+    of its group) and replayed after that: the arguments are copied into
+    the program's static inputs, the outputs returned as clones. A
+    capture or replay that fails raises."""
+    leaves = []
+    spec = _flatten(args, leaves)
+    dev = leaves[0].device
+    if dev.type != "cuda" or _EAGER.get():
+        return drive(program(*args, **static))
+    shape = _SHAPE.get() or tuple(args[0].img.shape[:2])
+    group = _group((shape, str(dev)))
+    key = (program, spec, tuple((tuple(t.shape), t.dtype) for t in leaves),
+           tuple(sorted(static.items())))
+    entry = group.get(key)
+    if entry is None:
+        out_spec = []
+
+        def flat(*xs):
+            out = yield from program(*_unflatten(spec, iter(xs)), **static)
+            outs = []
+            out_spec.append(_flatten(out, outs))
+            return tuple(outs)
+
+        if group.pool is None:
+            group.pool = torch.cuda.graph_pool_handle()
+        prog = Compiled(flat, [(t.shape, t.dtype) for t in leaves], dev,
+                        pool=group.pool)
+        outs = prog(*leaves)
+        group[key] = entry = (prog, out_spec[-1])
+        return _unflatten(entry[1], iter(outs))
+    prog, out = entry
+    return _unflatten(out, iter(prog(*leaves)))
+
+
+def clear_programs() -> None:
+    """Drop every compiled unit and release their pools."""
+    _PROGRAMS.clear()
+    _release()
+
+
+def _init_program(im: Image, init_mask: torch.Tensor, seed: int = 42):
+    """The program of `_grabcut_init`."""
     fg_w0 = _fg_of(init_mask).reshape(1, -1)
-    return (_init_gmm(im.pixels, fg_w0, seed),
-            _init_gmm(im.pixels, 1.0 - fg_w0, seed + 1))
+    fg_gmm = yield from _init_gmm(im.pixels, fg_w0, seed)
+    bg_gmm = yield from _init_gmm(im.pixels, 1.0 - fg_w0, seed + 1)
+    return fg_gmm, bg_gmm
 
 
-def _grabcut_iter(im: Image, masks: torch.Tensor, fg_gmm: GMM, bg_gmm: GMM,
+def _grabcut_init(im: Image, init_mask: torch.Tensor, seed: int = 42):
+    """GMMs seeded from the init mask (H, W): one lane each. A unit
+    (`_run`)."""
+    return _run(_init_program, im, init_mask, seed=seed)
+
+
+def _iter_program(im: Image, masks: torch.Tensor, fg_gmm: GMM, bg_gmm: GMM,
                   cut_y: Optional[torch.Tensor] = None, cut_iters: int = 2500):
-    """One assign/learn/cut alternation for every lane: masks (C, H, W)
-    uint8, GMMs of C lanes, cut_y (C, 4, H, W) or None.
-
-    cut_y carries the TV dual state between alternations so each cut
-    resumes where the last converged (the GMMs, hence the unary, move
-    slowly after the first pass). Returns (masks, fg_gmm, bg_gmm, y, it)."""
+    """The program of `_grabcut_iter`: yields the cut's CPLoop."""
     c, h, w = masks.shape
     pixels = im.pixels
     fg_w = _fg_of(masks).reshape(c, -1)
@@ -373,40 +557,45 @@ def _grabcut_iter(im: Image, masks: torch.Tensor, fg_gmm: GMM, bg_gmm: GMM,
     # unary = D_fg - D_bg: u = 1 means FG, so FG assignment pays D_fg
     unary = (_data_term(pixels, fg_gmm)
              - _data_term(pixels, bg_gmm)).reshape(c, h, w)
-    u, it, y = tv_mincut(unary, im.edge_w, masks == FGD, masks == BGD,
-                         max_iter=cut_iters, warm_y=cut_y)
+    cut_loop = CPLoop(unary, im.edge_w, masks == FGD, masks == BGD,
+                      max_iter=cut_iters, warm_y=cut_y)
+    yield cut_loop
     unknown = (masks == PR_BGD) | (masks == PR_FGD)
-    cut = torch.where(u > 0.5, PR_FGD, PR_BGD).to(torch.uint8)
-    return torch.where(unknown, cut, masks), fg_gmm, bg_gmm, y, it
+    cut = torch.where(cut_loop.u > 0.5, PR_FGD, PR_BGD).to(torch.uint8)
+    return (torch.where(unknown, cut, masks), fg_gmm, bg_gmm, cut_loop.y,
+            cut_loop.it)
+
+
+def _grabcut_iter(im: Image, masks: torch.Tensor, fg_gmm: GMM, bg_gmm: GMM,
+                  cut_y: Optional[torch.Tensor] = None, cut_iters: int = 2500):
+    """One assign/learn/cut alternation for every lane: masks (C, H, W)
+    uint8, GMMs of C lanes, cut_y (C, 4, H, W) or None. A unit (`_run`).
+
+    cut_y carries the TV dual state between alternations so each cut
+    resumes where the last converged (the GMMs, hence the unary, move
+    slowly after the first pass). Returns (masks, fg_gmm, bg_gmm, y, it)."""
+    return _run(_iter_program, im, masks, fg_gmm, bg_gmm, cut_y,
+                cut_iters=cut_iters)
 
 
 # --------------------------------------------------------------------------
 # standardized mask energy + split-merge polish
 # --------------------------------------------------------------------------
 
-def _side_nll(pixels: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
-    gmm0 = _init_gmm(pixels, wts, 42)
+def _side_nll(pixels: torch.Tensor, wts: torch.Tensor):
+    gmm0 = yield from _init_gmm(pixels, wts, 42)
     comp = _assign(pixels, gmm0)
     gmm = _gmm_from_moments(*_component_moments(pixels, wts, comp, K_COMP))
     return _data_term(pixels, gmm)
 
 
-def mask_energy(im: Image, fg01: torch.Tensor) -> torch.Tensor:
-    """GrabCut energy of hard segmentations fg01 (C, H, W) under GMMs fit
-    to each one's own partition by a fixed protocol (kmeans-seeded EM
-    refit, seed 42): (C,) float32. The common evaluator the polish and the
-    collapse restart judge with. Scoring candidates with the algorithm's
-    own GMM likelihoods instead is invalid: overfit tiny-covariance
-    components make a worse mask look better.
-
-    A lane's score has the same bits at any lane count: its k-means fits
-    run alone (`_init_gmm`), the moments are exact, and each of its five
-    float64 sums reduces a tensor of the lane's own, so the reduction's
-    order cannot follow the batch's shape."""
+def _energy_program(im: Image, fg01: torch.Tensor):
+    """The program of `mask_energy`."""
     c, h, w = fg01.shape
     fw = fg01.reshape(c, -1).to(torch.float32)
-    nll = torch.where(fw > 0, _side_nll(im.pixels, fw),
-                      _side_nll(im.pixels, 1.0 - fw))
+    nll_fg = yield from _side_nll(im.pixels, fw)
+    nll_bg = yield from _side_nll(im.pixels, 1.0 - fw)
+    nll = torch.where(fw > 0, nll_fg, nll_bg)
     u = fw.reshape(c, h, w)
     terms = [nll] + [wd * torch.abs(u - _shift(u, dy, dx))
                      for (dy, dx, _), wd in zip(_DIRS, im.edge_w)]
@@ -418,6 +607,22 @@ def mask_energy(im: Image, fg01: torch.Tensor) -> torch.Tensor:
             total = s if total is None else total + s
         totals.append(total)
     return torch.stack(totals).to(torch.float32)
+
+
+def mask_energy(im: Image, fg01: torch.Tensor) -> torch.Tensor:
+    """GrabCut energy of hard segmentations fg01 (C, H, W) under GMMs fit
+    to each one's own partition by a fixed protocol (kmeans-seeded EM
+    refit, seed 42): (C,) float32. The common evaluator the polish and the
+    collapse restart judge with. Scoring candidates with the algorithm's
+    own GMM likelihoods instead is invalid: overfit tiny-covariance
+    components make a worse mask look better.
+
+    A lane's score has the same bits at any lane count: no lane's
+    k-means arithmetic depends on another's (`_init_gmm`, every sum over
+    points in a fixed order), the moments are exact, and each of its five
+    float64 sums reduces a tensor of the lane's own, so the reduction's
+    order cannot follow the batch's shape. A unit (`_run`)."""
+    return _run(_energy_program, im, fg01)
 
 
 def _split_candidates(im: Image, side_w01: torch.Tensor, gmm: GMM) -> GMM:
@@ -450,14 +655,14 @@ def _split_candidates(im: Image, side_w01: torch.Tensor, gmm: GMM) -> GMM:
         diff = pixels[None, :, None, :] - cs[:, None]            # (K, N, 2, 3)
         d2 = (diff[..., 0] ** 2 + diff[..., 1] ** 2) + diff[..., 2] ** 2
         a = torch.argmin(d2, dim=2)
-        oh = F.one_hot(a, 2).to(torch.float64) * mw64[..., None]  # (K, N, 2)
+        oh = _one_hot(a, 2) * mw64[..., None]                    # (K, N, 2)
         cnt = oh.sum(dim=1).to(torch.float32)                    # (K, 2)
         newc = torch.matmul(oh.transpose(1, 2), p64).to(torch.float32) \
             / torch.clamp_min(cnt, 1e-6)[..., None]
         cs = torch.where((cnt > 0)[..., None], newc, cs)
 
     means = gmm.means[0]                                         # (K, 3)
-    cnts = (F.one_hot(comp, k).to(torch.float64)
+    cnts = (_one_hot(comp, k)
             * side_w01.to(torch.float64)[:, None]).sum(dim=0).to(torch.float32)
     dm = means[:, None] - means[None]
     d2p = (dm[..., 0] ** 2 + dm[..., 1] ** 2) + dm[..., 2] ** 2  # (K, K)
@@ -492,19 +697,9 @@ def _where_gmm(pred, a: GMM, b: GMM) -> GMM:
     return _gmm_map(lambda x, z: torch.where(pred, x, z), a, b)
 
 
-def _polish_round(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
-                  extra_iters: int):
-    """One split-merge proposal round on one lane (mask (1, H, W), GMMs
-    of one lane, y (1, 4, H, W)): build 2K candidate GMM pairs (split each
-    FG and each BG component), continue each for `extra_iters` batched
-    alternations, and take the one of least standardized energy. Returns
-    the winner's (mask, fg_gmm, bg_gmm, y, energy), each of one lane;
-    nothing is read on the host.
-
-    The JAX package ranks with its vmapped evaluator and confirms the
-    winner with the unbatched one, because the two round differently. The
-    port's `mask_energy` gives a lane the same bits at any lane count, so
-    the ranking score is the confirmed one."""
+def _round_program(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
+                   extra_iters: int):
+    """The program of `_polish_round`."""
     n_cand = 2 * K_COMP
     fg01 = _fg_of(mask).reshape(-1)
     fg_splits = _split_candidates(im, fg01, fg_gmm)
@@ -516,13 +711,44 @@ def _polish_round(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
     masks = mask.expand(n_cand, *mask.shape[1:])
     ys = y.expand(n_cand, *y.shape[1:])
     for _ in range(extra_iters):
-        masks, fgg, bgg, ys, _ = _grabcut_iter(im, masks, fgg, bgg, ys)
-    es = mask_energy(im, _fg_of(masks))
+        masks, fgg, bgg, ys, _ = yield from _iter_program(im, masks, fgg, bgg,
+                                                          ys)
+    es = yield from _energy_program(im, _fg_of(masks))
     es = torch.where(torch.isnan(es), float("inf"), es)
     k = torch.argmin(es).reshape(1)
     pick = lambda t: t.index_select(0, k)  # noqa: E731
     return (pick(masks), _gmm_map(pick, fgg), _gmm_map(pick, bgg), pick(ys),
             pick(es)[0])
+
+
+def _polish_round(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
+                  extra_iters: int):
+    """One split-merge proposal round on one lane (mask (1, H, W), GMMs
+    of one lane, y (1, 4, H, W)): build 2K candidate GMM pairs (split each
+    FG and each BG component), continue each for `extra_iters` batched
+    alternations, and take the one of least standardized energy. Returns
+    the winner's (mask, fg_gmm, bg_gmm, y, energy), each of one lane;
+    nothing is read on the host. A unit (`_run`).
+
+    The JAX package ranks with its vmapped evaluator and confirms the
+    winner with the unbatched one, because the two round differently. The
+    port's `mask_energy` gives a lane the same bits at any lane count, so
+    the ranking score is the confirmed one."""
+    return _run(_round_program, im, mask, fg_gmm, bg_gmm, y,
+                extra_iters=int(extra_iters))
+
+
+def _accepted_round_program(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
+                            e_inc, extra_iters: int):
+    """A polish round and its acceptance, one program: the carried state
+    (mask, GMMs, y, energy) after the round, the winner's where it
+    strictly improves on `e_inc`, and the accept flag."""
+    m_c, fg_c, bg_c, y_c, e_c = yield from _round_program(
+        im, mask, fg_gmm, bg_gmm, y, extra_iters)
+    acc = _accepts_dev(e_c, e_inc)
+    return (torch.where(acc, m_c, mask), _where_gmm(acc, fg_c, fg_gmm),
+            _where_gmm(acc, bg_c, bg_gmm), torch.where(acc, y_c, y),
+            torch.where(acc, e_c, e_inc), acc)
 
 
 def _splitmerge_polish(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
@@ -547,22 +773,19 @@ def _splitmerge_polish(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
     round leaves the carried state unchanged, so later rounds would
     re-propose and re-reject the same candidates) and the any-round-
     accepted gate before the full-resolution continuation. Every accept
-    and carry decision is a device-side select."""
+    and carry decision is a device-side select, inside the round's
+    program."""
     if search_max_dim is None:
         search_max_dim = DEFAULTS.grabcut_polish_search_dim
     h, w = mask.shape[1:]
+    extra_iters = int(extra_iters)
 
     if max(h, w) <= int(search_max_dim):
         e_inc = mask_energy(im, _fg_of(mask))[0]
         for r in range(int(rounds)):
-            m_c, fg_c, bg_c, y_c, e_c = _polish_round(
-                im, mask, fg_gmm, bg_gmm, y, extra_iters)
-            acc = _accepts_dev(e_c, e_inc)
-            mask = torch.where(acc, m_c, mask)
-            fg_gmm = _where_gmm(acc, fg_c, fg_gmm)
-            bg_gmm = _where_gmm(acc, bg_c, bg_gmm)
-            y = torch.where(acc, y_c, y)
-            e_inc = torch.where(acc, e_c, e_inc)
+            mask, fg_gmm, bg_gmm, y, e_inc, acc = _run(
+                _accepted_round_program, im, mask, fg_gmm, bg_gmm, y, e_inc,
+                extra_iters=extra_iters)
             if r == 0 and not bool(acc):  # host read 1: exact early exit
                 return mask
         return mask
@@ -577,14 +800,9 @@ def _splitmerge_polish(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
     e_s = mask_energy(im_s, _fg_of(mask_s))[0]
     any_acc = torch.zeros((), dtype=torch.bool, device=mask.device)
     for r in range(int(rounds)):
-        m_c, fg_c, bg_c, y_c, e_c = _polish_round(
-            im_s, mask_s, fg_s, bg_s, y_s, extra_iters)
-        acc = _accepts_dev(e_c, e_s)
-        mask_s = torch.where(acc, m_c, mask_s)
-        fg_s = _where_gmm(acc, fg_c, fg_s)
-        bg_s = _where_gmm(acc, bg_c, bg_s)
-        y_s = torch.where(acc, y_c, y_s)
-        e_s = torch.where(acc, e_c, e_s)
+        mask_s, fg_s, bg_s, y_s, e_s, acc = _run(
+            _accepted_round_program, im_s, mask_s, fg_s, bg_s, y_s, e_s,
+            extra_iters=extra_iters)
         any_acc = any_acc | acc
         if r == 0 and not bool(acc):  # host read 1: exact early exit
             return mask
@@ -595,7 +813,7 @@ def _splitmerge_polish(im: Image, mask, fg_gmm: GMM, bg_gmm: GMM, y,
         return mask
 
     m_f, fg_f, bg_f, y_f = mask, fg_s, bg_s, y
-    for _ in range(int(extra_iters)):
+    for _ in range(extra_iters):
         m_f, fg_f, bg_f, y_f, _ = _grabcut_iter(im, m_f, fg_f, bg_f, y_f)
     e = mask_energy(im, torch.cat([_fg_of(mask), _fg_of(m_f)]))
     return torch.where(_accepts_dev(e[1], e[0]), m_f, mask)
@@ -656,8 +874,23 @@ def grabcut_core(img_bgr, init_mask, iterations: Optional[int] = None,
     alternations converge, propose split-merge moves on both GMMs and keep
     the best mask under the standardized energy, an escape from the EM
     local optima that cv.grabCut (reference grabcut.py:52-54) has none of.
+
+    On the card the units (init, one alternation, the energy, a polish
+    round) run compiled, each captured as CUDA graphs at its first call
+    with new shapes and replayed after that (`_run`); the units of the
+    last `PROGRAM_SHAPES` image shapes are kept. On the CPU they run
+    eagerly. Both give the same bytes.
     """
-    dev = resolve_device(device)
+    token = _SHAPE.set(tuple(int(n) for n in img_bgr.shape[:2]))
+    try:
+        return _grabcut(img_bgr, init_mask, iterations, seed, splitmerge,
+                        resolve_device(device))
+    finally:
+        _SHAPE.reset(token)
+
+
+def _grabcut(img_bgr, init_mask, iterations, seed, splitmerge, dev):
+    """`grabcut_core` on `dev`."""
     if iterations is None:
         iterations = DEFAULTS.grabcut_iterations
     if splitmerge is None:
@@ -719,3 +952,17 @@ def grabcut_core(img_bgr, init_mask, iterations: Optional[int] = None,
         _sync(dev)
         LAST_SOLVE_INFO["t_polish"] = time.perf_counter() - t0
     return mask[0]
+
+
+def _grabcut_core_eager(img_bgr, init_mask, iterations: Optional[int] = None,
+                        seed: int = 42, splitmerge: Optional[bool] = None,
+                        device="cuda"):
+    """`grabcut_core` with every unit run op by op, never from a graph:
+    the plain counterpart of the compiled run on the card, with its
+    bytes. The CPU runs this path anyway."""
+    token = _EAGER.set(True)
+    try:
+        return grabcut_core(img_bgr, init_mask, iterations=iterations,
+                            seed=seed, splitmerge=splitmerge, device=device)
+    finally:
+        _EAGER.reset(token)

@@ -22,9 +22,16 @@ path is the same code on one restart at a time, so the two give the same
 bits. Its points are LAB or HSV coordinates or colours weighted by large
 counts, so no sum is exact: every sum over points runs in a fixed order
 (pairwise inside a block of points, then block after block), and the fit
-does not depend on how torch orders a reduction on a device. The host
-reads two flags once per Lloyd iteration (any restart still moving, any
-cluster empty).
+does not depend on how torch orders a reduction on a device.
+
+Host reads of `kmeans_fit`. Eagerly (`kmeans_fit`, the colour
+quantizers) the host reads two flags once per Lloyd iteration (any
+restart still moving, any cluster empty) and ranks the farthest points
+only when a cluster is empty. In a compiled program (solvers/grabcut.py's
+GrabCut units drive `kmeans_fit_lanes_program`, every lane's fit in lock
+step) each RestartLoop is a captured chunk of `RESTART_CHUNK` iterations
+with a branchless reseed, replayed until its flag clears: one host read
+a chunk, the same bits.
 
 Ties follow JAX: `argmin`/`argmax` take the first index, and `lax.top_k`'s
 lowest-index-first order is a stable descending sort.
@@ -45,11 +52,18 @@ import torch
 from image_segmenter_tpu_torch.ops.scan import cumsum, tree_sum
 from image_segmenter_tpu_torch.utils import prng as PRNG
 from image_segmenter_tpu_torch.utils.backend import true_div
+from image_segmenter_tpu_torch.utils.loops import Loop, drive
 
 _BLOCK = 1 << 17  # 131072 points per assignment block
 # Lloyd iterations of `kmeans_fit_det` between two reads of the stop flag
 # (bench/sweep_chunks.py measures the choice)
 LLOYD_CHUNK = 8
+# Lloyd iterations of `kmeans_fit`'s RestartLoop.step between two reads
+# of the stop flag in a compiled program. Swept on whole compiled GrabCut
+# calls at 1024 x 768 (`bench/profile_grabcut.py --restart-chunks`): 1
+# gave the least t_init and t_polish of 1, 2, 4 and 8 and the quickest
+# first call; a masked iteration costs more than a read
+RESTART_CHUNK = 1
 
 
 class KMeansResult(NamedTuple):
@@ -106,7 +120,7 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
-class LloydLoop:
+class LloydLoop(Loop):
     """Weighted Lloyd iterations until shift^2 <= tol, per image, as a
     loop its caller drives: `step` runs `LLOYD_CHUNK` iterations on the
     device, `flag` (0-dim bool) says whether any image is still active,
@@ -183,11 +197,6 @@ class LloydLoop:
                          (self.it, it), (self.active, active)):
             dst.copy_(src)
         torch.any(active, out=self.flag)
-
-    def run(self) -> None:
-        """Step until no image is active: one host read a chunk."""
-        while bool(self.flag):
-            self.step()
 
     def finish(self) -> KMeansResult:
         # Snap near-integer means to the integer (pure-color clusters),
@@ -310,27 +319,28 @@ def _log_weights(x: torch.Tensor) -> torch.Tensor:
 def _kmeanspp_init(keys: Sequence[PRNG.Key], pts: torch.Tensor,
                    w: torch.Tensor, k: int, n_local_trials: int) -> torch.Tensor:
     """Greedy k-means++ over weighted points (sklearn's _kmeans_plusplus)
-    for every key at once: pts (nb, block, 3), w (nb, block) ->
-    (len(keys), k, 3). Each key draws what the JAX package draws from it:
-    the first centre prop. to weight, then `n_local_trials` candidates per
-    step prop. to w * min_d2, of which the one with the least total
-    potential wins."""
+    for every key at once: pts (nb, block, 3), w (nb, block) shared by
+    the keys or (len(keys), nb, block) one a key -> (len(keys), k, 3).
+    Each key draws what the JAX package draws from it: the first centre
+    prop. to weight, then `n_local_trials` candidates per step prop. to
+    w * min_d2, of which the one with the least total potential wins."""
     nb, blk, d = pts.shape
     r = len(keys)
     dev = pts.device
     flatp = pts.reshape(nb * blk, d)
-    flatw = w.reshape(nb * blk)
+    flatw = w.reshape(*w.shape[:-2], nb * blk)                 # (N,) or (R, N)
     ptsT = pts.transpose(1, 2).contiguous()                    # (nb, 3, block)
     rows = torch.arange(r, device=dev)
 
     pairs = [PRNG.split(kk) for kk in keys]
     keys = [pr[0] for pr in pairs]
     idx0 = PRNG.categorical_batched([pr[1] for pr in pairs],
-                                    _log_weights(flatw)[None].expand(r, -1))
+                                    _log_weights(flatw).expand(r, -1))
     centers = torch.zeros((r, k, d), dtype=torch.float32, device=dev)
     centers[:, 0] = flatp[idx0]
-    min_d2 = torch.cat([_d2_points_last(ptsT[j], centers[:, 0]) * (w[j] > 0)
-                        for j in range(nb)], dim=1)            # (R, N)
+    min_d2 = torch.cat([_d2_points_last(ptsT[j], centers[:, 0])
+                        * (w[..., j, :] > 0) for j in range(nb)],
+                       dim=1)                                  # (R, N)
 
     for i in range(1, k):
         pairs = [PRNG.split(kk) for kk in keys]
@@ -346,9 +356,10 @@ def _kmeanspp_init(keys: Sequence[PRNG.Key], pts: torch.Tensor,
         nds = []
         for j in range(nb):
             md = min_d2[:, None, j * blk:(j + 1) * blk]
+            wj = w[..., j, None, :]                            # (1 or R, 1, block)
             nd = torch.minimum(_d2_points_last(ptsT[j], cands), md) \
-                * (w[j] > 0)
-            pots = pots + tree_sum(nd * w[j])
+                * (wj > 0)
+            pots = pots + tree_sum(nd * wj)
             nds.append(nd)
         best = torch.argmin(pots, dim=1)                       # (R,)
         centers[:, i] = cands[rows, best]
@@ -356,77 +367,145 @@ def _kmeanspp_init(keys: Sequence[PRNG.Key], pts: torch.Tensor,
     return centers
 
 
-def _lloyd_restarts(pts, w, centers_all, max_iter: int,
-                    tol: torch.Tensor) -> KMeansResult:
-    """Weighted Lloyd for every restart in lock step: centers_all
-    (R, k, 3). A restart whose shift^2 is within `tol` is frozen (its
-    centres are carried unchanged) while the others finish; no restart's
-    arithmetic depends on another's, so R = 1 on one restart at a time
-    gives the same bits. Returns the restart of least inertia (the first
-    on ties)."""
-    nb, blk, d = pts.shape
-    r, k, _ = centers_all.shape
-    dev = pts.device
-    ptsT = pts.transpose(1, 2).contiguous()                    # (nb, 3, block)
-    bins = torch.arange(k, device=dev)[None, :, None]
+class RestartLoop:
+    """Weighted Lloyd for every row in lock step, as a loop its caller
+    drives: centers (R, k, 3); w (nb, block), the weights of one fit
+    whose R rows are its restarts, or (R, nb, block), a fit a row (the
+    lanes of `kmeans_fit_lanes_program`); tol () or (R,). A row runs
+    while its shift^2 is above `tol` and it has run fewer than `max_iter`
+    iterations; a stopped row is frozen (its centres are carried
+    unchanged) while the others finish. No row's arithmetic depends on
+    another's, so R = 1 on one row at a time gives the same bits.
+    `finish` snaps the centres and returns, for shared weights, the
+    restart of least inertia (the first on ties), else every row's.
 
-    def assign_stats(call):
+    An empty cluster moves onto the farthest points: the i-th empty slot
+    of a restart takes its i-th farthest point. `step` runs
+    `RESTART_CHUNK` iterations with no host read, the state (centres,
+    shift^2, iterations, flag) written in place, so a CUDA graph can
+    capture it (pipeline/compiled.py): it ranks the farthest points every
+    iteration and keeps them only in the empty slots, as the JAX
+    package's `_lloyd` does. `run`, the eager loop, reads the host once an
+    iteration and ranks the points only when a cluster is empty, where the
+    ranking changes the result: the colour quantizers' fits over millions
+    of points skip the sort (hsv_clustering's fit, 8.3 M points, ten
+    restarts: 7.317 s with `run`, 8.457 s stepped to its end, by
+    bench/micro_hsv_fit.py on an H100 80GB HBM3 at 700 W). Both give the
+    same bits."""
+
+    def __init__(self, pts, w, centers, max_iter: int, tol: torch.Tensor):
+        r, k, _ = centers.shape
+        dev = pts.device
+        self.pts, self.w, self.max_iter, self.tol = pts, w, max_iter, tol
+        self.ptsT = pts.transpose(1, 2).contiguous()            # (nb, 3, block)
+        self.bins = torch.arange(k, device=dev)[None, :, None]
+        self.chunk = RESTART_CHUNK
+        self.centers = centers.clone()
+        self.shift2 = torch.full((r,), float("inf"), device=dev)
+        self.it = torch.zeros((r,), dtype=torch.int32, device=dev)
+        self.flag = self._active(self.shift2, self.it).any()
+
+    def _active(self, shift2, it):
+        return (shift2 > self.tol) & (it < self.max_iter)
+
+    def _assign_stats(self, call):
+        pts, w, ptsT = self.pts, self.w, self.ptsT
+        nb, _, d = pts.shape
+        r, k, _ = call.shape
+        dev = pts.device
         sums = torch.zeros((r, k, d), dtype=torch.float32, device=dev)
         counts = torch.zeros((r, k), dtype=torch.float32, device=dev)
         inertia = torch.zeros((r,), dtype=torch.float32, device=dev)
         for j in range(nb):
             d2 = _d2_points_last(ptsT[j], call)                # (R, k, block)
             dmin, lbl = torch.min(d2, dim=1)                   # first minimum
-            onehot = (lbl[:, None, :] == bins).to(torch.float32) * w[j]
+            onehot = (lbl[:, None, :] == self.bins).to(torch.float32) \
+                * w[..., j, None, :]
             sums = sums + tree_sum(onehot[:, :, None, :] * ptsT[j])
             counts = counts + tree_sum(onehot)
-            inertia = inertia + tree_sum(dmin * w[j])
+            inertia = inertia + tree_sum(dmin * w[..., j, :])
         return sums, counts, inertia
 
-    def reseed_empty(call, counts):
+    def _means(self, call):
+        """The weighted means and the counts; an empty cluster keeps its
+        centre."""
+        sums, counts, _ = self._assign_stats(call)
+        return torch.where(counts[..., None] > 0,
+                           sums / torch.clamp_min(counts, 1.0)[..., None],
+                           call), counts
+
+    def _reseed_empty(self, call, counts):
         """Move empty clusters onto the current farthest points: the i-th
         empty slot takes the i-th farthest point."""
-        md = torch.cat([_d2_points_last(ptsT[j], call).amin(dim=1) * (w[j] > 0)
-                        for j in range(nb)], dim=1)            # (R, N)
+        pts, w, ptsT = self.pts, self.w, self.ptsT
+        nb, _, d = pts.shape
+        k = call.shape[1]
+        md = torch.cat([_d2_points_last(ptsT[j], call).amin(dim=1)
+                        * (w[..., j, :] > 0) for j in range(nb)],
+                       dim=1)                                  # (R, N)
         far_pts = pts.reshape(-1, d)[_top_k_indices(md, k)]    # (R, k, 3)
         empty = counts == 0
         slot = torch.clamp(torch.cumsum(empty.to(torch.int64), dim=1) - 1,
                            0, k - 1)
         return torch.where(empty[..., None], _gather_rows(far_pts, slot), call)
 
-    call = centers_all
-    shift2 = torch.full((r,), float("inf"), device=dev)
-    moving = bool((shift2 > tol).any())
-    it = 0
-    while moving and it < max_iter:
-        active = shift2 > tol
+    def _advance(self, new, call, active):
+        """The active restarts' new centres and every restart's shift^2."""
+        new = torch.where(active[:, None, None], new, call)
+        diff = new - call
+        return new, tree_sum((diff * diff).reshape(call.shape[0], -1))
 
-        def advance(new):
-            new = torch.where(active[:, None, None], new, call)
-            diff = new - call
-            return new, tree_sum((diff * diff).reshape(r, -1))
+    def step(self) -> None:
+        """`RESTART_CHUNK` iterations, the reseed branchless. No host
+        read: a CUDA graph can capture it."""
+        call, shift2, it = self.centers, self.shift2, self.it
+        for _ in range(self.chunk):
+            active = self._active(shift2, it)
+            mean, counts = self._means(call)
+            call, shift2 = self._advance(self._reseed_empty(mean, counts),
+                                         call, active)
+            it = it + active.to(torch.int32)
+        for dst, src in ((self.centers, call), (self.shift2, shift2),
+                         (self.it, it)):
+            dst.copy_(src)
+        torch.any(self._active(shift2, it), out=self.flag)
 
-        sums, counts, _ = assign_stats(call)
-        mean = torch.where(counts[..., None] > 0,
-                           sums / torch.clamp_min(counts, 1.0)[..., None], call)
-        new, new_shift2 = advance(mean)
-        # one host read an iteration; the reseed (a sort of every point's
-        # distance) runs only when a cluster is empty, where it changes
-        # the result
-        any_empty, moving = torch.stack(
-            [(counts == 0).any(), (new_shift2 > tol).any()]).tolist()
-        if any_empty:
-            new, new_shift2 = advance(reseed_empty(mean, counts))
-            moving = bool((new_shift2 > tol).any())
-        call, shift2 = new, new_shift2
-        it += 1
-    # Snap near-integer means to the integer (pure-colour clusters), which
-    # a downstream uint8 cast would otherwise truncate.
-    rounded = torch.round(call)
-    call = torch.where(torch.abs(call - rounded) < 1e-3, rounded, call)
-    _, _, inertia = assign_stats(call)
-    best = torch.argmin(inertia)
-    return KMeansResult(centers=call[best], inertia=inertia[best])
+    def run(self) -> None:
+        """Iterate until no restart is active: one host read an
+        iteration; the reseed (a sort of every point's distance) runs
+        only when a cluster is empty."""
+        call, shift2, it = self.centers, self.shift2, self.it
+        moving = bool(self.flag)
+        while moving:
+            active = self._active(shift2, it)
+            mean, counts = self._means(call)
+            new, new_shift2 = self._advance(mean, call, active)
+            it = it + active.to(torch.int32)
+            any_empty, moving = torch.stack(
+                [(counts == 0).any(),
+                 self._active(new_shift2, it).any()]).tolist()
+            if any_empty:
+                new, new_shift2 = self._advance(
+                    self._reseed_empty(mean, counts), call, active)
+                moving = bool(self._active(new_shift2, it).any())
+            call, shift2 = new, new_shift2
+        for dst, src in ((self.centers, call), (self.shift2, shift2),
+                         (self.it, it)):
+            dst.copy_(src)
+        self.flag.fill_(False)
+
+    def finish(self) -> KMeansResult:
+        # Snap near-integer means to the integer (pure-colour clusters),
+        # which a downstream uint8 cast would otherwise truncate.
+        call = self.centers
+        rounded = torch.round(call)
+        call = torch.where(torch.abs(call - rounded) < 1e-3, rounded, call)
+        _, _, inertia = self._assign_stats(call)
+        if self.w.dim() == 3:  # a fit a row
+            return KMeansResult(centers=call, inertia=inertia)
+        best = torch.argmin(inertia).reshape(1)
+        return KMeansResult(centers=call.index_select(0, best)[0],
+                            inertia=inertia.index_select(0, best)[0])
 
 
 def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int, *,
@@ -443,7 +522,28 @@ def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int, *,
     batch_restarts: None picks the lock-step Lloyd for n_init >= 4 and
     one restart after another below; True and False force either. Both
     give the same result bit for bit.
-    """
+
+    The eager run of `kmeans_fit_program`."""
+    return drive(kmeans_fit_program(points, weights, k, n_init=n_init,
+                                    max_iter=max_iter, seed=seed,
+                                    batch_restarts=batch_restarts))
+
+
+def kmeans_fit_program(points: torch.Tensor, weights: torch.Tensor, k: int,
+                       *, n_init: int = 10, max_iter: int = 300,
+                       seed: int = 42, batch_restarts: bool | None = None):
+    """`kmeans_fit` as a program (utils/loops.py): the seeding, then
+    each RestartLoop yielded (one, or one a restart below the lock step's
+    n_init: `kmeans_fit_lanes_program` of one lane), then the
+    least-inertia pick. Returns the KMeansResult."""
+    if batch_restarts is None:
+        batch_restarts = n_init >= 4
+    if not batch_restarts or n_init == 1:
+        res = yield from kmeans_fit_lanes_program(
+            points, weights[None], k, n_init=n_init, max_iter=max_iter,
+            seed=seed)
+        return KMeansResult(centers=res.centers[0], inertia=res.inertia[0])
+
     points = points.to(torch.float32)
     weights = weights.to(torch.float32)
     ptsb, wb = _pad_points(points[None], weights[None])
@@ -458,20 +558,48 @@ def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int, *,
     centers0_all = torch.cat(
         [_kmeanspp_init(rkeys[s:s + per], pts, w, k, n_local_trials)
          for s in range(0, n_init, per)], dim=0)
+    loop = RestartLoop(pts, w, centers0_all, max_iter, tol)
+    yield loop
+    return loop.finish()
 
-    if batch_restarts is None:
-        batch_restarts = n_init >= 4
-    if batch_restarts and n_init > 1:
-        return _lloyd_restarts(pts, w, centers0_all, max_iter, tol)
 
+def kmeans_fit_lanes_program(points: torch.Tensor, weights: torch.Tensor,
+                             k: int, *, n_init: int = 10, max_iter: int = 300,
+                             seed: int = 42):
+    """`kmeans_fit` of C weightings of the same points, as a program:
+    points (N, 3), weights (C, N) -> KMeansResult of centers (C, k, 3)
+    and inertia (C,). The JAX package vmaps `kmeans_fit` over its lanes;
+    here the lanes run in lock step, one RestartLoop a restart, the
+    restarts one after another (whatever `n_init`), and the least
+    inertia wins (the first on ties). No lane's arithmetic depends on
+    another's: a lane's result has the bits of a fit of its own weights
+    (`kmeans_fit`'s restarts one after another are this, one lane)."""
+    points = points.to(torch.float32)
+    weights = weights.to(torch.float32)
+    c = weights.shape[0]
+    ptsb, w = _pad_points(points[None].expand(c, -1, -1), weights)
+    pts = ptsb[0]
+    nb, blk, d = pts.shape
+    tol = _tolerance(ptsb.reshape(c, nb * blk, d), w.reshape(c, nb * blk), k)
+
+    n_local_trials = 2 + int(math.log(max(k, 2)))  # sklearn's heuristic
+    key = PRNG.key(seed)
+    per = max(1, _INIT_ELEMS // (n_local_trials * nb * blk))
     best = KMeansResult(
-        centers=torch.zeros((k, d), dtype=torch.float32, device=pts.device),
-        inertia=torch.full((), float("inf"), device=pts.device))
+        centers=torch.zeros((c, k, d), dtype=torch.float32, device=pts.device),
+        inertia=torch.full((c,), float("inf"), device=pts.device))
     for i in range(n_init):
-        res = _lloyd_restarts(pts, w, centers0_all[i:i + 1], max_iter, tol)
+        rkey = PRNG.fold_in(key, i)
+        centers0 = torch.cat(
+            [_kmeanspp_init([rkey] * len(w[s:s + per]), pts, w[s:s + per], k,
+                            n_local_trials) for s in range(0, c, per)], dim=0)
+        loop = RestartLoop(pts, w, centers0, max_iter, tol)
+        yield loop
+        res = loop.finish()
         better = res.inertia < best.inertia
         best = KMeansResult(
-            centers=torch.where(better, res.centers, best.centers),
+            centers=torch.where(better[:, None, None], res.centers,
+                                best.centers),
             inertia=torch.where(better, res.inertia, best.inertia))
     return best
 

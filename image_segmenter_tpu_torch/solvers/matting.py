@@ -61,6 +61,7 @@ from image_segmenter_tpu_torch.ops.resize import resize_linear_aa
 from image_segmenter_tpu_torch.parallel.mesh import SPACE_AXIS, split_bounds, \
     take, to_slot
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
+from image_segmenter_tpu_torch.utils.loops import Loop
 
 _LAMBDA = 100.0  # pymatting's known-constraint weight
 # CG iterations between two reads of the stop flag. A chunk wastes up to
@@ -202,7 +203,7 @@ def _space_slots(mesh) -> list:
     return list(mesh.devices[0])
 
 
-class CGLoop:
+class CGLoop(Loop):
     """The batched CG as a loop its caller drives: the constructor runs
     the precompute and the first residual, `step` runs `CG_CHUNK`
     iterations on the solve's devices, `flag` (a 0-dim bool on the first slot) says
@@ -348,12 +349,6 @@ class CGLoop:
                          (self.it, it), (self.active, active)):
             dst.copy_(src)
         torch.any(active, out=self.flag)
-
-    def run(self) -> None:
-        """Step until no image is active: one host read a chunk, one stop
-        decision for every slot, from the summed residual."""
-        while bool(self.flag):
-            self.step()
 
     def finish(self):
         """(alpha, ok, it, res, rankdef_frac) from the current state."""

@@ -95,10 +95,23 @@ def fold_in(k: Key, data: int) -> Key:
     return (y0[0], y1[0])
 
 
+# the key words of a batch of keys, by (keys, device). On a CUDA device
+# they are made by a copy from host memory, which a stream that captures
+# a CUDA graph refuses, so they are made once, outside the capture (at a
+# compiled program's warm-up), and kept for the graphs that read them. A
+# key depends only on its seed and the draw's place in the stream, so the
+# entries are few: one for each k-means++ step of each seed.
+_WORDS: dict = {}
+
+
 def _key_words(keys: Sequence[Key], device):
     """The key words of a batch of keys as int32 tensors (R, 1)."""
-    words = torch.tensor([[_s32(k[0]), _s32(k[1])] for k in keys],
-                         dtype=torch.int32, device=device)
+    cache = (tuple(tuple(k) for k in keys), str(torch.device(device)))
+    words = _WORDS.get(cache)
+    if words is None:
+        words = _WORDS[cache] = torch.tensor(
+            [[_s32(k[0]), _s32(k[1])] for k in keys], dtype=torch.int32,
+            device=device)
     return words[:, 0:1], words[:, 1:2]
 
 

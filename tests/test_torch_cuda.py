@@ -387,7 +387,7 @@ def test_compiled_run_is_the_eager_run(cuda):
     other images that leaves the first call's outputs alone, and a second
     shape with a program of its own."""
     from image_segmenter_tpu_torch.pipeline import segment as SEG
-    from image_segmenter_tpu_torch.pipeline.compiled import drive
+    from image_segmenter_tpu_torch.utils.loops import drive
     from image_segmenter_tpu_torch.solvers.matting import CG_CHUNK
 
     pipe = SEG.Pipeline(model="u2netp", k=16, device="cuda")
@@ -632,6 +632,89 @@ def test_grabcut_core_card_matches_cpu(cuda):
     assert (got[outside] == 0).all()
     assert np.array_equal(got, apply_grabcut(img, rect_xywh=rect,
                                              iterations=10))
+
+
+@pytest.mark.parametrize("hw", [(256, 192), (1024, 768)])
+def test_compiled_grabcut_is_the_eager_grabcut(cuda, hw):
+    """grabcut_core on the card runs its units from CUDA graphs: the
+    private eager path's mask bytes, cut iterations and restart flag, at
+    the polish's small path (256 x 192) and at config 4's shape (1024 x
+    768, the coarse search), and a third call bit-identical."""
+    from image_segmenter_tpu_torch.solvers import grabcut as GC
+    from image_segmenter_tpu_torch.utils.seeds import config4_rect, \
+        portrait_scene
+
+    h, w = hw
+    img, _ = portrait_scene(h, w, 21)
+    x, y, rw, rh = config4_rect(h, w)
+    mask = np.zeros((h, w), np.uint8)
+    mask[y:y + rh, x:x + rw] = GC.PR_FGD
+
+    def solve(fn):
+        out = fn(img, mask, iterations=10, device="cuda").cpu().numpy()
+        info = GC.LAST_SOLVE_INFO
+        return out, info["cut_iters"], info.get("restart_accepted")
+
+    GC.clear_programs()
+    first = solve(GC.grabcut_core)  # warm-up and captures
+    # one group, the image's: the coarse search's units join it
+    assert [shape for shape, _ in GC._PROGRAMS] == [(h, w)]
+    second = solve(GC.grabcut_core)
+    eager = solve(GC._grabcut_core_eager)
+    third = solve(GC.grabcut_core)
+    for got in (first, second, third):
+        assert np.array_equal(got[0], eager[0])
+        assert got[1:] == eager[1:]
+
+
+def test_compiled_grabcut_memory_is_bounded(cuda):
+    """Cutting images of five shapes (about as many pixels each, none
+    past the polish's coarse search) keeps the units of the last
+    `PROGRAM_SHAPES` shapes: the groups stay at that count and the device
+    memory reserved after each later shape stays within a quarter of that
+    after the second, over what was reserved before the first."""
+    from image_segmenter_tpu_torch.solvers import grabcut as GC
+    from image_segmenter_tpu_torch.utils.seeds import config4_rect, \
+        portrait_scene
+
+    GC.clear_programs()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_reserved()
+    reserved = []
+    for h, w in ((192, 256), (256, 192), (208, 236), (236, 208),
+                 (240, 204)):
+        img, _ = portrait_scene(h, w, 21)
+        x, y, rw, rh = config4_rect(h, w)
+        mask = np.zeros((h, w), np.uint8)
+        mask[y:y + rh, x:x + rw] = GC.PR_FGD
+        GC.grabcut_core(img, mask, iterations=3, device="cuda")
+        torch.cuda.synchronize()
+        assert len(GC._PROGRAMS) == min(len(reserved) + 1, GC.PROGRAM_SHAPES)
+        reserved.append(torch.cuda.memory_reserved() - base)
+    assert max(reserved[2:]) <= 1.25 * reserved[1], reserved
+    GC.clear_programs()
+
+
+def test_prng_key_words_in_a_captured_graph(cuda):
+    """A categorical draw captured in a CUDA graph after one eager call
+    (which makes its key words) replays the eager draw's indices, and
+    the key words on the card are the CPU's."""
+    from image_segmenter_tpu_torch.utils import prng as P
+
+    keys = [P.fold_in(P.key(42), i) for i in range(3)]
+    logits = torch.randn((3, 5000), generator=_gen(cuda, 9), device=cuda)
+    eager = P.categorical_batched(keys, logits, 4)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream):
+        out = P.categorical_batched(keys, logits, 4)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    k1, k2 = P._key_words(keys, cuda)
+    c1, c2 = P._key_words(keys, "cpu")
+    assert torch.equal(k1.cpu(), c1) and torch.equal(k2.cpu(), c2)
 
 
 def _ellipse_masks(seed, n, h, w):
