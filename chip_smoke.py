@@ -34,8 +34,9 @@ Phases, each raising (and exiting non-zero) on failure:
    photo-like batch, compiled (captured as CUDA graphs at its first call,
    replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
    bytes and CG and Lloyd counts, per-kernel launch counts from the
-   replays (K3 in whole CG chunks), a call on other images that leaves
-   the first call's outputs alone, a bit-identical third run, the
+   replays (K3 in whole CG chunks), the same sha256 from a call traced
+   under torch.profiler and its spans' CG chunks, a call on other images
+   that leaves the first call's outputs alone, a bit-identical third run, the
    compiled wall beside the eager stages', the device busy time and idle
    share, the peak memory, and a second shape (2 x 1080 x 1920) with a
    program of its own;
@@ -1035,6 +1036,26 @@ def run_slice(label: str):
     if sha != MAIN_PATH_SHA256:
         fail(f"the main path's outputs changed: {sha}, expected "
              f"{MAIN_PATH_SHA256}")
+
+    # the same call traced: its spans (utils/profiling.py) change no byte
+    PROF.clear()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]):
+        traced = pipe.run(x)
+        torch.cuda.synchronize()
+    sha_traced = {name: BENCH_K12._sha(t)
+                  for name, t in zip(traced._fields, traced)}
+    if sha_traced != MAIN_PATH_SHA256:
+        fail(f"the main path's outputs changed under the profiler: "
+             f"{sha_traced}")
+    calls = [c for c in PROF.record().calls
+             if c.spans[0].name == "pipeline.run"]
+    if len(calls) != 1 or calls[0].chunks.get("CGLoop") != chunks:
+        fail(f"the traced call's record is not one call of {chunks} CG "
+             f"chunks: {[(c.id, c.chunks) for c in calls]}")
+    print(f"[slice] a traced call: sha256 held; {len(calls[0].spans)} spans, "
+          f"{calls[0].flag_reads} flag reads, {calls[0].graph_replays} graph "
+          f"replays, chunks {calls[0].chunks}")
 
     loops = []
     eager = drive(SEG.batch_program(pipe.stages, pipe.session.module, x),

@@ -38,9 +38,16 @@ The kernels' wrappers count their launches in Python, which a replay does
 not run. So the launches a capture counted are taken back and kept with
 its graph, and each replay adds them: `LAUNCHES` stays the count of
 kernels the card ran.
+
+Spans (utils/profiling.py): a call's copy in is `compiled.ingest`, each
+replay of straight code `compiled.segment`, each read of a loop's flag
+`loop.flag` and each replay of its chunk `loop.step`, the clones
+`compiled.outputs`; the first call is the setup span `compiled.capture`.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -49,6 +56,7 @@ from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.utils.loops import warm_up
+from image_segmenter_tpu_torch.utils.profiling import setup_span, span
 
 # the launch counters of the main path's kernels, K1-K4
 COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
@@ -56,6 +64,8 @@ COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
 
 # the capture stream of each device, shared by its programs
 _STREAMS: dict = {}
+# numbers the programs in the order they are made, for their spans
+_SERIAL = itertools.count(1)
 
 
 def _counts() -> list:
@@ -68,24 +78,30 @@ def _add_counts(delta) -> None:
 
 
 class _Graph:
-    """One captured graph, the launches its replay makes, and for a loop's
-    step the flag that says whether to replay it again and the loop's
-    iteration counts."""
+    """One captured graph, its index in the program, the launches its
+    replay makes, and for a loop's step the flag that says whether to
+    replay it again, the loop's iteration counts and its class's name."""
 
-    __slots__ = ("graph", "launches", "flag", "it")
+    __slots__ = ("graph", "index", "launches", "flag", "it", "loop")
 
-    def __init__(self, graph, launches, loop=None):
-        self.graph, self.launches = graph, launches
-        self.flag, self.it = (None, None) if loop is None \
-            else (loop.flag, loop.it)
+    def __init__(self, graph, index, launches, loop=None):
+        self.graph, self.index, self.launches = graph, index, launches
+        self.flag, self.it, self.loop = (None, None, None) if loop is None \
+            else (loop.flag, loop.it, type(loop).__name__)
 
     def replay(self) -> None:
         if self.flag is None:
-            self.graph.replay()
+            with span("compiled.segment", self.index):
+                self.graph.replay()
             _add_counts(self.launches)
             return
-        while bool(self.flag):  # one host read a chunk
-            self.graph.replay()
+        while True:
+            with span("loop.flag", self.loop):
+                go = bool(self.flag)  # one host read a chunk
+            if not go:
+                return
+            with span("loop.step", self.loop, self.index):
+                self.graph.replay()
             _add_counts(self.launches)
 
 
@@ -108,19 +124,23 @@ class Compiled:
         self._pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self._graphs = []
         self._out = None
+        self.serial = next(_SERIAL)
 
     def __call__(self, *xs: torch.Tensor) -> tuple:
         if len(xs) != len(self.inputs):
             raise ValueError(f"the program takes {len(self.inputs)} tensors, "
                              f"got {len(xs)}")
-        for dst, x in zip(self.inputs, xs):
-            dst.copy_(x)
+        with span("compiled.ingest", self.serial):
+            for dst, x in zip(self.inputs, xs):
+                dst.copy_(x)
         if self._out is None:
-            self._capture()
+            with setup_span("compiled.capture", self.serial):
+                self._capture()
         else:
             for g in self._graphs:
                 g.replay()
-        return tuple(t.clone() for t in self._out)
+        with span("compiled.outputs"):
+            return tuple(t.clone() for t in self._out)
 
     def graphs(self) -> int:
         """The number of graphs the program was captured as."""
@@ -146,7 +166,7 @@ class Compiled:
                 graph.capture_end()
         launches = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-n for n in launches])  # a capture launches nothing
-        g = _Graph(graph, launches, loop)
+        g = _Graph(graph, len(self._graphs), launches, loop)
         self._graphs.append(g)
         g.replay()
 

@@ -56,6 +56,7 @@ from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.solvers.matting import CGLoop
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
 from image_segmenter_tpu_torch.utils.loops import drive
+from image_segmenter_tpu_torch.utils.profiling import setup_span, span
 
 
 class PipelineOutput(NamedTuple):
@@ -353,47 +354,52 @@ class Pipeline:
     def __init__(self, model: str = "u2netp", k: int = 16,
                  matting_dim: Optional[int] = None, cg_iters: int = 200,
                  device="cuda", sharding=None):
-        self.sharding = sharding
-        if sharding is None:
-            self.device = resolve_device(device)
-        else:
-            mesh = sharding.mesh
-            if mesh.axis_names != (DATA_AXIS, SPACE_AXIS):
-                raise ValueError("Pipeline: sharding needs a (data, space) "
-                                 f"mesh, got axes {mesh.axis_names}")
-            for d in mesh.devices.flat:
-                resolve_device(d)
-            self.device = mesh.first
-        self.session = REG.new_session(model, device=self.device)
-        self.k = k
-        self.matting_dim = matting_dim or DEFAULTS.matting_max_dim
-        self.cg_iters = cg_iters
-        self.stages = make_stage_fns(self.session, self.k, self.matting_dim,
-                                     self.cg_iters, device=self.device)
-        # per data group: its first slot and its stages, the solve split
-        # over the group's space slots
-        self._groups = [] if sharding is None else [
-            (g.first, make_stage_fns(self.session, self.k, self.matting_dim,
-                                     self.cg_iters, device=g.first,
-                                     solve_mesh=g))
-            for g in (mesh.group(i) for i in range(mesh.shape[0]))]
-        self._copies = {}
-        self.programs = {}  # the compiled run's programs, by key
+        with setup_span("pipeline.init", model):
+            self.sharding = sharding
+            if sharding is None:
+                self.device = resolve_device(device)
+            else:
+                mesh = sharding.mesh
+                if mesh.axis_names != (DATA_AXIS, SPACE_AXIS):
+                    raise ValueError("Pipeline: sharding needs a (data, "
+                                     "space) mesh, got axes "
+                                     f"{mesh.axis_names}")
+                for d in mesh.devices.flat:
+                    resolve_device(d)
+                self.device = mesh.first
+            self.session = REG.new_session(model, device=self.device)
+            self.k = k
+            self.matting_dim = matting_dim or DEFAULTS.matting_max_dim
+            self.cg_iters = cg_iters
+            self.stages = make_stage_fns(self.session, self.k,
+                                         self.matting_dim, self.cg_iters,
+                                         device=self.device)
+            # per data group: its first slot and its stages, the solve
+            # split over the group's space slots
+            self._groups = [] if sharding is None else [
+                (g.first, make_stage_fns(self.session, self.k,
+                                         self.matting_dim, self.cg_iters,
+                                         device=g.first, solve_mesh=g))
+                for g in (mesh.group(i) for i in range(mesh.shape[0]))]
+            self._copies = {}
+            self.programs = {}  # the compiled run's programs, by key
 
     def run(self, imgs_u8) -> PipelineOutput:
-        x = _as_batch(imgs_u8)
-        if self.sharding is not None or self.device.type != "cuda":
-            return self._run(x, None)
-        key = (self.session.model_id, *x.shape[:3], str(self.device))
-        prog = self.programs.get(key)
-        if prog is None:
-            stages, module = self.stages, self.session.module
-            prog = Compiled(lambda imgs: batch_program(stages, module, imgs),
-                            [(x.shape, x.dtype)], self.device)
-            out = PipelineOutput(*prog(x))
-            self.programs[key] = prog  # kept once its capture succeeded
-            return out
-        return PipelineOutput(*prog(x))
+        with span("pipeline.run"):  # a call's root (utils/profiling.py)
+            x = _as_batch(imgs_u8)
+            if self.sharding is not None or self.device.type != "cuda":
+                return self._run(x, None)
+            key = (self.session.model_id, *x.shape[:3], str(self.device))
+            prog = self.programs.get(key)
+            if prog is None:
+                stages, module = self.stages, self.session.module
+                prog = Compiled(
+                    lambda imgs: batch_program(stages, module, imgs),
+                    [(x.shape, x.dtype)], self.device)
+                out = PipelineOutput(*prog(x))
+                self.programs[key] = prog  # kept once its capture succeeded
+                return out
+            return PipelineOutput(*prog(x))
 
     def run_eager(self, imgs_u8) -> PipelineOutput:
         """`run` op by op through `stages`, never from a graph: the plain

@@ -19,14 +19,23 @@ does before it captures the program as CUDA graphs.
 
 from __future__ import annotations
 
+from image_segmenter_tpu_torch.utils.profiling import span
+
 
 class Loop:
     """The eager `run` of a loop with `step` and `flag`."""
 
     def run(self) -> None:
-        """Step until no lane is active: one host read a chunk."""
-        while bool(self.flag):
-            self.step()
+        """Step until no lane is active: one host read a chunk (the spans
+        `loop.flag` and `loop.step`, utils/profiling.py)."""
+        name = type(self).__name__
+        while True:
+            with span("loop.flag", name):
+                go = bool(self.flag)
+            if not go:
+                return
+            with span("loop.step", name):
+                self.step()
 
 
 def drive(program, loops: list | None = None):

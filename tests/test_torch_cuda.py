@@ -420,6 +420,47 @@ def test_compiled_run_is_the_eager_run(cuda):
         assert torch.equal(a, b)
 
 
+def test_compiled_run_spans(cuda):
+    """The compiled run under torch.profiler (utils/profiling.py): one
+    `compiled.segment` a graph of straight code, the CG's `loop.step`
+    spans the K3 launches' chunks, a flag read more than chunks a loop,
+    one `compiled.capture` a shape, and the outputs unchanged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_segmenter_tpu_torch.pipeline import segment as SEG
+    from image_segmenter_tpu_torch.solvers.matting import CG_CHUNK
+    from image_segmenter_tpu_torch.utils import profiling as P
+
+    P.clear()
+    pipe = SEG.Pipeline(model="u2netp", k=16, device="cuda")
+    x = torch.from_numpy(_photo_like(2, 240, 320, 0)).to(cuda)
+    first = pipe.run(x)  # warm-up and capture, untraced
+    (prog,) = pipe.programs.values()
+    launches = KMV.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = pipe.run(x)
+        torch.cuda.synchronize()
+    launches = KMV.LAUNCHES - launches
+    assert all(torch.equal(a, b) for a, b in zip(out, first))
+    (call,) = [c for c in P.record().calls
+               if c.spans[0].name == "pipeline.run"]
+    loops = len(prog.iterations())
+    names = [s.name for s in call.spans]
+    chunks = sum(call.chunks.values())
+    assert names.count("compiled.segment") == prog.graphs() - loops
+    assert names.count("compiled.ingest") == 1 == names.count(
+        "compiled.outputs")
+    assert call.chunks["CGLoop"] == (launches - 1) // CG_CHUNK
+    assert call.flag_reads == chunks + loops
+    assert call.graph_replays == prog.graphs() - loops + chunks
+    captures = [s for s in P.record().setup if s.name == "compiled.capture"]
+    assert [s.attrs for s in captures] == [(prog.serial,)]
+    pipe.run(torch.from_numpy(_photo_like(1, 200, 256, 1)).to(cuda))
+    pipe.run(x)
+    captures = [s for s in P.record().setup if s.name == "compiled.capture"]
+    assert len(captures) == 2 and captures[0].attrs == (prog.serial,)
+
+
 # the bench shape, a ragged one (the byte path) and rows of a multiple of
 # 16 (the 16-byte path at a small size)
 @pytest.mark.parametrize("bhw,k_real", [((4, 2160, 3840), 16),
