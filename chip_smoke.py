@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
-2. build: compiles the eight CUDA kernels from kernels/csrc with nvcc;
+2. build: compiles the CUDA kernels from kernels/csrc with nvcc (K1-K8
+   and the matting CG's update);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at ragged shapes, with warm timings, its bound
    (the least time the card could take: bytes over the memory rate or
@@ -29,12 +30,20 @@ Phases, each raising (and exiting non-zero) on failure:
    between two events, which also holds the host's way to the launch; for
    K1, K2 and every variant of K8 (on random, run and alpha-like rows, K1
    beside it) also the time of the same calls replayed from a CUDA graph,
-   the device's alone;
+   the device's alone. The CG's update (kernels/cg_update.py, three
+   kernels an iteration, no TPU kernel: XLA fuses it) through
+   CGLoop._step_fused against CGLoop._body on the card, bit for bit after
+   every chunk, at 4 x 576 x 1024 and at a ragged shape, with images that
+   restart, break down, converge and stop on a non-finite residual inside
+   a chunk; then bench/micro_cg_iter.run at 4 x 576 x 1024: an iteration
+   from a CUDA graph, plain against fused, and each kernel's device time
+   beside its bound (5, 7 and 4.875 planes);
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, compiled (captured as CUDA graphs at its first call,
    replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
    bytes and CG and Lloyd counts, per-kernel launch counts from the
-   replays (K3 in whole CG chunks), the same sha256 from a call traced
+   replays (K3 in whole CG chunks, the CG's update three a K3 launch but
+   the first), the same sha256 from a call traced
    under torch.profiler and its spans' CG chunks, a call on other images
    that leaves the first call's outputs alone, a bit-identical third run, the
    compiled wall beside the eager stages', the device busy time and idle
@@ -161,8 +170,8 @@ Phases, each raising (and exiting non-zero) on failure:
    >= 0.999 of the pixels, equal alpha giving equal palettes);
    Pipeline.run on a 1 x 1080 x 1920 tile of the bench's photo mosaic
    against the CPU (phase 5's rule: alpha agreement >= 0.99, the same
-   bytes after the CNN; K1-K4 launched); each attribution micro
-   (chip_envelope, micro_u2netp_pack, micro_kmeans_restart,
+   bytes after the CNN; K1-K4 and the CG's update launched); each
+   attribution micro (chip_envelope, micro_u2netp_pack, micro_kmeans_restart,
    micro_fit_sample, micro_hsv_fit, micro_dbscan) once at its default
    shape (one warm and one timed call), one JSON line each with the card's
    label.
@@ -198,6 +207,7 @@ from image_segmenter_tpu_torch.bench import micro_fit_sample as MICRO_FIT_SAMPLE
 from image_segmenter_tpu_torch.bench import micro_hsv_fit as MICRO_HSV_FIT
 from image_segmenter_tpu_torch.bench import micro_kmeans_restart as MICRO_KMEANS
 from image_segmenter_tpu_torch.bench import micro_u2netp_pack as MICRO_U2NETP
+from image_segmenter_tpu_torch.bench import micro_cg_iter as MICRO_CG
 from image_segmenter_tpu_torch.bench import micro_hist_nibble as BENCH_HIST
 from image_segmenter_tpu_torch.bench import micro_matvec as BENCH
 from image_segmenter_tpu_torch.bench import micro_precompute_hist as BENCH_K12
@@ -214,6 +224,7 @@ from image_segmenter_tpu_torch.compat import rembg_infer as REMBG
 from image_segmenter_tpu_torch.compat import tendril_trimming as TENDRILS
 from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.kernels import _build
+from image_segmenter_tpu_torch.kernels import cg_update as KCG
 from image_segmenter_tpu_torch.kernels import hist_variants as K8
 from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matting as K6
@@ -285,8 +296,14 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
                       "bench/micro_quantize.py:63"),
     "hist_variants": (K8, "LAUNCHES", _CSRC + "hist_variants.cu",
                       "bench/micro_hist_nibble.py:93"),
+    "cg_update": (KCG, "LAUNCHES", _CSRC + "cg_update.cu",
+                  "none (XLA fuses the CG's update around "
+                  + _TPU + "pallas_matvec.py:271)"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
+# the main path on one card: also the CG's update, which a solve split
+# over slots (phase 15) leaves to CGLoop._body
+SLICE_PATH = MAIN_PATH + ("cg_update",)
 # sha256 (first 16 hex digits) of Pipeline.run's outputs on phase 4's batch,
 # unchanged since the kernels' redesigns kept every bit
 # (bench/micro_precompute_hist.py cuda pipeline prints the same)
@@ -939,6 +956,93 @@ def check_hist_variants(label: str, dev) -> dict:
             "variants": per_variant}
 
 
+def _cg_state(loop) -> dict:
+    """The CG's loop-carried state, floats as their bits (NaN equals NaN)."""
+    out = {"x": loop.x.blocks[0], "r": loop.r.blocks[0],
+           "p": loop.p.blocks[0], "rz": loop.rz, "pending": loop.pending,
+           "it": loop.it, "active": loop.active, "flag": loop.flag}
+    return {k: v.view(torch.int32) if v.dtype == torch.float32 else v
+            for k, v in out.items()}
+
+
+def _cg_parity(dev, b: int, h: int, w: int) -> tuple:
+    """Two CGs on the photo mosaic at (b, h, w), rtol 1e-5, one stepped
+    through `_step_fused` and one through `_step_plain`, bit for bit after
+    every chunk: image 0 as it comes, image 1 with a restart pending,
+    image 2 (where there is one) with p = 0 (a breakdown at the noise
+    floor, then a restart), the last image with an infinite residual
+    entry once 8 iterations have run (it stops at the next, inside a
+    chunk). Returns (chunks, iterations of each image)."""
+    fused, plain = (MICRO_CG.make_loop(b, h, w, dev, rtol=1e-5, max_iter=200)
+                    for _ in range(2))
+    if fused.update != "fused":
+        fail(f"CGLoop at {(b, h, w)} on the card runs {fused.update!r}, "
+             f"not the fused update")
+    for loop in (fused, plain):
+        if b > 1:
+            loop.pending[1] = True
+        if b > 2:
+            loop.p.blocks[0][2] = 0.0
+    hit, chunks = None, 0
+    while bool(plain.flag):
+        if hit is None and int(plain.it.max()) >= 8:
+            hit = int(plain.it[b - 1])
+            for loop in (fused, plain):
+                loop.r.blocks[0][b - 1, h // 2, w // 3] = float("inf")
+        k3, cu = KMV.LAUNCHES, KCG.LAUNCHES
+        fused.step()
+        launched = (KMV.LAUNCHES - k3, KCG.LAUNCHES - cu)
+        plain._step_plain()
+        chunks += 1
+        if launched != (MAT.CG_CHUNK, 3 * MAT.CG_CHUNK):
+            fail(f"a fused CG chunk at {(b, h, w)} launched {launched[0]} "
+                 f"K3 and {launched[1]} update kernels, not {MAT.CG_CHUNK} "
+                 f"and {3 * MAT.CG_CHUNK}")
+        got, want = _cg_state(fused), _cg_state(plain)
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        if differ:
+            fail(f"the fused CG at {(b, h, w)} left `_body`'s bits in "
+                 f"{differ} after chunk {chunks}")
+    it = plain.it.tolist()
+    if hit is None or it[b - 1] != hit + 1 or bool(fused.flag):
+        fail(f"the CG at {(b, h, w)} did not stop as set up: iterations "
+             f"{it}, the infinite entry after {hit}")
+    return chunks, it
+
+
+def check_cg_update(label: str, dev) -> dict:
+    """The CG's update against `_body` and the micro's times and bounds."""
+    cases = {}
+    for shape in ((BATCH, MH, MW), (2, *RAGGED)):
+        cases[shape] = _cg_parity(dev, *shape)
+    rec = MICRO_CG.run(BATCH, MH, MW)
+    if not rec["bits_equal"]:
+        fail("micro_cg_iter: the fused and plain graphs' states differ")
+    it_ms = rec["iteration_ms"]
+    kern = {k.replace("_kernel", ""): v for k, v in rec["kernels"].items()}
+    k3 = kern.pop("matvec")
+    if any(v["ms"] is None for v in (k3, *kern.values())):
+        fail(f"micro_cg_iter: a kernel has no device time: {rec['kernels']}")
+    plain_ms = it_ms["plain"] - k3["ms"]  # `_body` outside K3
+    ms = sum(v["ms"] for v in kern.values())
+    bd = {"bound_ms": sum(v["bound_ms"] for v in kern.values()),
+          "bound_by": "bytes"}
+    print(f"[kernels] cg_update ({BATCH}, {MH}, {MW}) and {(2, *RAGGED)} "
+          f"f32: `_body`'s bits after every chunk ("
+          + "; ".join(f"{s}: {c} chunks, iterations {it}"
+                      for s, (c, it) in cases.items())
+          + "); from a CUDA graph an iteration "
+          + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                      f"{v['share_of_bound']:.2f} of it)"
+                      for k, v in kern.items())
+          + f", K3 {k3['ms']:.4f}; the iteration fused {it_ms['fused']:.4f} "
+          f"ms, plain {it_ms['plain']:.4f} (`_body` outside K3 "
+          f"{plain_ms:.4f}) ({label})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None, "ms_graph": ms, "kernels": kern,
+            "iteration_ms": it_ms}
+
+
 # ---------------------------------------------------------------------------
 # phase 4 and 5: the slice
 # ---------------------------------------------------------------------------
@@ -1013,7 +1117,7 @@ def run_slice(label: str):
     zero_counts()
     out = pipe.run(x)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in read_counts().items() if k in MAIN_PATH}
+    launches = {k: v for k, v in read_counts().items() if k in SLICE_PATH}
     cg_it, lloyd_it = prog.iterations()
     print(f"[slice] kernel launches in one Pipeline.run (from the replays): "
           f"{launches}; CG iterations {cg_it.tolist()}, Lloyd iterations "
@@ -1023,10 +1127,12 @@ def run_slice(label: str):
             fail(f"kernel {name} was not launched by the main path")
     # one histogram for the trimap's two quantiles and one for Otsu; one
     # precompute and one palette map a batch; K3 once for the first
-    # residual and CG_CHUNK times in each chunk the loop replayed
+    # residual and CG_CHUNK times in each chunk the loop replayed; the CG's
+    # update three times for each of those K3 launches
     chunks = -(-int(cg_it.max()) // MAT.CG_CHUNK)
     want = {"histogram": 2, "precompute": 1,
-            "matvec": 1 + MAT.CG_CHUNK * chunks, "quantize": 1}
+            "matvec": 1 + MAT.CG_CHUNK * chunks, "quantize": 1,
+            "cg_update": 3 * MAT.CG_CHUNK * chunks}
     if launches != want:
         fail(f"the main path's launches a run are {launches}, not {want}")
 
@@ -1149,14 +1255,14 @@ def card_vs_cpu(label: str) -> None:
 def pipeline_card_vs_cpu(img: np.ndarray, tag: str, label: str) -> dict:
     """Phase 5's rule on `img`: the full runs agree on >= 0.99 of the
     alpha, and from the card's CNN mask the stages give the same bytes;
-    returns the card run's K1-K4 launches."""
+    returns the card run's launches of K1-K4 and the CG's update."""
     b, h, w = img.shape[:3]
     pipes = {dev: Pipeline(model="u2netp", k=16, device=dev)
              for dev in ("cuda", "cpu")}
     zero_counts()
     outs = {dev: [t.cpu() for t in pipe.run(img)]
             for dev, pipe in pipes.items()}
-    launches = {k: v for k, v in read_counts().items() if k in MAIN_PATH}
+    launches = {k: v for k, v in read_counts().items() if k in SLICE_PATH}
     (g_rgba, g_alpha, g_pal), (c_rgba, c_alpha, c_pal) = outs["cuda"], outs["cpu"]
     agree = float((g_rgba[..., 3] == c_rgba[..., 3]).double().mean())
     refined = float((g_alpha == c_alpha).double().mean())
@@ -3004,6 +3110,7 @@ def main() -> None:
         "matvec_recompute": check_matvec_recompute(label, dev),
         "quantize_flat": check_quantize_flat(label, dev),
         "hist_variants": check_hist_variants(label, dev),
+        "cg_update": check_cg_update(label, dev),
     }
     launches, frame = run_slice(label)
     card_vs_cpu(label)

@@ -62,6 +62,20 @@ SIGNATURES = {
     # (x u8 (B, n), n, B, step, blocks a row, scratch int32 (>= B, 257) all
     #  zero, out f32 (B, 256), stream)
     "iseg_hist_variant": [_P, _I64, _I32, _I32, _I32, _P, _P, _P],
+    # (lq f32 (B, H, W) in, y out, q, known, p, active bool (B,), B, H*W,
+    #  blocks an image, lam, partials f64 (B, blocks, 2), stream)
+    "iseg_cg_dot": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _F32, _P, _P],
+    # (y, b, m_inv, x in/out, r in/out, p, partials of p.y and p.p, rz f32
+    #  (B,), pending bool, active bool, B, H*W, blocks an image, partials
+    #  of r.z and r.r out, stream)
+    "iseg_cg_advance": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64,
+                        _I32, _P, _P],
+    # (m_inv, r, x, p in/out, q out or null, the two partials, rz, pending,
+    #  it int32, active in, the same four out, bnorm f32 (B,), rtol,
+    #  max_iter, B, H*W, blocks an image, flag bool out or null, stream)
+    "iseg_cg_direction": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _F32, _I32, _I32, _I64, _I32, _P,
+                          _P],
 }
 
 _lib = None

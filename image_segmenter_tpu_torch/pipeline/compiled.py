@@ -51,6 +51,7 @@ import itertools
 
 import torch
 
+from image_segmenter_tpu_torch.kernels import cg_update as KCG
 from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
@@ -58,9 +59,10 @@ from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.utils.loops import warm_up
 from image_segmenter_tpu_torch.utils.profiling import setup_span, span
 
-# the launch counters of the main path's kernels, K1-K4
+# the launch counters of the main path's kernels, K1-K4, and the CG's
+# update (kernels/cg_update.py)
 COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
-            (KQ, "LAUNCHES"))
+            (KQ, "LAUNCHES"), (KCG, "LAUNCHES"))
 
 # the capture stream of each device, shared by its programs
 _STREAMS: dict = {}
@@ -80,14 +82,20 @@ def _add_counts(delta) -> None:
 class _Graph:
     """One captured graph, its index in the program, the launches its
     replay makes, and for a loop's step the flag that says whether to
-    replay it again, the loop's iteration counts and its class's name."""
+    replay it again, the loop's iteration counts, its class's name and
+    the attrs of its `loop.step` spans: (class, index), and the loop's
+    `update` path where it has one (solvers/matting.CGLoop)."""
 
-    __slots__ = ("graph", "index", "launches", "flag", "it", "loop")
+    __slots__ = ("graph", "index", "launches", "flag", "it", "loop",
+                 "step_attrs")
 
     def __init__(self, graph, index, launches, loop=None):
         self.graph, self.index, self.launches = graph, index, launches
         self.flag, self.it, self.loop = (None, None, None) if loop is None \
             else (loop.flag, loop.it, type(loop).__name__)
+        update = getattr(loop, "update", None)
+        self.step_attrs = (self.loop, index) + (
+            () if update is None else (update,))
 
     def replay(self) -> None:
         if self.flag is None:
@@ -100,7 +108,7 @@ class _Graph:
                 go = bool(self.flag)  # one host read a chunk
             if not go:
                 return
-            with span("loop.step", self.loop, self.index):
+            with span("loop.step", *self.step_attrs):
                 self.graph.replay()
             _add_counts(self.launches)
 

@@ -25,7 +25,10 @@ so each image stops at the iteration count it has in JAX. The loop runs
 in chunks of `CG_CHUNK` iterations with the state in place (`CGLoop`):
 eagerly the host reads the stop flag once a chunk, and the compiled
 pipeline (pipeline/compiled.py) replays a captured chunk until the flag
-clears, the counterpart of the JAX package's `lax.while_loop`.
+clears, the counterpart of the JAX package's `lax.while_loop`. An
+iteration outside the matvec is `CGLoop._body`'s PyTorch operations, or,
+for an unsplit float32 solve on a card, three kernels
+(kernels/cg_update.py) that give the same bits (`update_path`).
 
 `mesh=` splits a solve's rows over the space slots of a (1, S) mesh
 (parallel/mesh.py), where the JAX package gets the same from GSPMD on
@@ -53,6 +56,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.kernels import cg_update as CU
 from image_segmenter_tpu_torch.kernels.matvec import laplacian_matvec_plain, \
     matvec_planes
 from image_segmenter_tpu_torch.kernels.precompute import precompute_planes, \
@@ -194,6 +198,19 @@ class _Slab(NamedTuple):
         return t.narrow(t.dim() - 2, off, self.rows[1] - self.rows[0])
 
 
+def update_path(devices, dtype) -> str:
+    """How `CGLoop` runs an iteration outside the matvec, from what its
+    input shows: "fused" (kernels/cg_update.py, three kernels) for an
+    unsplit float32 solve on a card; "plain" (`CGLoop._body`, PyTorch
+    operations) on the CPU, in float64 (the compat ladder's and the
+    polish's rungs) and for a solve split over several slots, whose sums
+    add partials from every slot."""
+    if (len(devices) == 1 and torch.device(devices[0]).type == "cuda"
+            and dtype == torch.float32):
+        return "fused"
+    return "plain"
+
+
 def _space_slots(mesh) -> list:
     """The space slots of a one-group (1, S) mesh, in row order."""
     if mesh.shape[0] != 1 or mesh.axis_names[1] != SPACE_AXIS:
@@ -218,6 +235,9 @@ class CGLoop(Loop):
     (pipeline/compiled.py). An image that stops inside a chunk keeps its
     state through the rest of the chunk, as under the JAX package's
     vmapped `while_loop`: any chunk size gives the same bits and counts.
+    `update` names how an iteration runs outside the matvec
+    (`update_path`): "fused" through kernels/cg_update.py, else "plain",
+    `_body`; the two give the same bits.
 
     With a mesh the image rows split over its space slots (torch.
     tensor_split sizes). Each slot precomputes its block extended by
@@ -258,6 +278,8 @@ class CGLoop(Loop):
         self.slabs, self.bounds, self.radius, self.lam = \
             slabs, bounds, radius, lam
         self.rtol, self.max_iter = rtol, max_iter
+        self.update = update_path(devs, dt)
+        self._fused = None  # the fused step's buffers, made at its first call
 
         def rows(t):  # a (B, H, W) tensor split over the slots
             return _Rows(to_slot(t[:, r0:r1], sl.dev)
@@ -331,6 +353,13 @@ class CGLoop(Loop):
     def step(self) -> None:
         """`CG_CHUNK` iterations; images no longer active keep their state.
         No host read: a CUDA graph can capture it."""
+        if self.update == "fused":
+            self._step_fused()
+        else:
+            self._step_plain()
+
+    def _step_plain(self) -> None:
+        """`step` through `_body`."""
         x, r, p, rz = self.x, self.r, self.p, self.rz
         pending, it, active = self.pending, self.it, self.active
         for _ in range(CG_CHUNK):
@@ -349,6 +378,39 @@ class CGLoop(Loop):
                          (self.it, it), (self.active, active)):
             dst.copy_(src)
         torch.any(active, out=self.flag)
+
+    def _step_fused(self) -> None:
+        """`step` of an unsplit solve through kernels/cg_update.py: an
+        iteration is the matvec, `cg_dot`, `cg_advance` and
+        `cg_direction`. The scalar state alternates between the loop's
+        buffers and a second set; the matvec's operand q is x where an
+        image restarts, else p."""
+        (sl,) = self.slabs
+        x, r, p = self.x.blocks[0], self.r.blocks[0], self.p.blocks[0]
+        if self._fused is None:
+            b, h, w = x.shape
+            self._fused = (torch.empty_like(x),
+                           CU.partials(b, h * w, x.device),
+                           CU.partials(b, h * w, x.device),
+                           CU.State(*(torch.empty_like(t) for t in (
+                               self.rz, self.pending, self.it, self.active))))
+        q, part1, part2, alt = self._fused
+        known, rhs, m_inv = (t.blocks[0]
+                             for t in (self.is_known, self.b, self.m_inv))
+        states = (CU.State(self.rz, self.pending, self.it, self.active), alt)
+        torch.where(_bcast(self.pending), x, p, out=q)
+        for i in range(CG_CHUNK):
+            cur, new = states[i % 2], states[(i + 1) % 2]
+            last = i == CG_CHUNK - 1
+            y = _matvec(sl.pre, q, self.radius)
+            CU.cg_dot(y, q, known, p, cur.active, self.lam, part1)
+            CU.cg_advance(y, rhs, m_inv, x, r, p, part1, cur, part2)
+            CU.cg_direction(m_inv, r, x, p, None if last else q, part1, part2,
+                            cur, new, self.bnorm, self.rtol, self.max_iter,
+                            self.flag if last else None)
+        if CG_CHUNK % 2:
+            for dst, src in zip(*states):
+                dst.copy_(src)
 
     def finish(self):
         """(alpha, ok, it, res, rankdef_frac) from the current state."""

@@ -29,12 +29,14 @@ class Loop:
         """Step until no lane is active: one host read a chunk (the spans
         `loop.flag` and `loop.step`, utils/profiling.py)."""
         name = type(self).__name__
+        update = getattr(self, "update", None)
+        step = (name,) if update is None else (name, None, update)
         while True:
             with span("loop.flag", name):
                 go = bool(self.flag)
             if not go:
                 return
-            with span("loop.step", name):
+            with span("loop.step", *step):
                 self.step()
 
 

@@ -38,7 +38,9 @@ The spans of the program, by name:
 - `loop.flag`, attrs (loop class,): the host's read of a loop's stop flag,
   between a loop's graph replays and in utils/loops.Loop.run;
 - `loop.step`, attrs (loop class, graph index): the replay of a loop's
-  chunk; attrs (loop class,) for an eager `step()` in Loop.run;
+  chunk; attrs (loop class,) for an eager `step()` in Loop.run; a loop
+  with an `update` path (solvers/matting.CGLoop: "fused" or "plain")
+  adds it as a third attr, after None in Loop.run;
 - `compiled.outputs`: the clones of a program's outputs;
 - `host.gc`, attrs (generation,): a run of the collector;
 - `compiled.capture`, attrs (program,) (a setup span): a program's first
@@ -94,12 +96,14 @@ class Call(NamedTuple):
     its counters, counted from them: `flag_reads` the `loop.flag` spans,
     `graph_replays` the `compiled.segment` spans and the `loop.step`
     spans replayed from a graph, `chunks` the `loop.step` spans of each
-    loop class."""
+    loop class, `fused_chunks` the `loop.step` spans whose update path
+    is "fused"."""
     id: int
     spans: list
     flag_reads: int
     graph_replays: int
     chunks: dict
+    fused_chunks: int = 0
 
 
 class Record(NamedTuple):
@@ -216,16 +220,17 @@ def _snapshot(c: _Call) -> Call:
     spans = [Span(s.name, c.id, s.parent, s.start, s.end, s.attrs)
              for s in c.slots[:c.n]]
     chunks: dict = {}
-    flags = replays = 0
+    flags = replays = fused = 0
     for s in spans:
         if s.name == "loop.flag":
             flags += 1
         elif s.name == "loop.step":
             chunks[s.attrs[0]] = chunks.get(s.attrs[0], 0) + 1
-            replays += len(s.attrs) > 1
+            replays += len(s.attrs) > 1 and s.attrs[1] is not None
+            fused += s.attrs[2:] == ("fused",)
         elif s.name == "compiled.segment":
             replays += 1
-    return Call(c.id, spans, flags, replays, chunks)
+    return Call(c.id, spans, flags, replays, chunks, fused)
 
 
 def record() -> Record:

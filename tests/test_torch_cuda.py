@@ -1006,3 +1006,96 @@ def test_bench_headline_on_the_card(cuda, monkeypatch, capsys):
     assert rec["value"] > 0 and rec["device_resident_mp_s"] > 0
     assert rec["card"] == B.card_label(cuda) and rec["h2d_gbs"]["pre"] > 0
     assert all(n > 0 for n in rec["launches"].values()), rec["launches"]
+
+
+def _cg_bits(loop):
+    """The loop-carried state, floats as their bits (NaN equals NaN)."""
+    out = {"x": loop.x.blocks[0], "r": loop.r.blocks[0],
+           "p": loop.p.blocks[0], "rz": loop.rz, "pending": loop.pending,
+           "it": loop.it, "active": loop.active, "flag": loop.flag}
+    return {k: v.view(torch.int32) if v.dtype == torch.float32 else v
+            for k, v in out.items()}
+
+
+@pytest.mark.parametrize("bhw,case,chunk", [((4, 2160, 3840), "all", 8),
+                                            ((4, 2160, 3840), "all", 3),
+                                            ((1, 1080, 1920), "breakdown", 8),
+                                            ((1, 1080, 1920), "non-finite",
+                                             8)])
+def test_fused_cg_step_is_the_plain_step(cuda, bhw, case, chunk,
+                                         monkeypatch):
+    """The CG of `Pipeline.run` on photo mosaics of the corpus (matting at
+    4 x 576 x 1024 and 1 x 576 x 1024): a chunk through kernels/cg_update
+    (`_step_fused`, the path CGLoop takes on the card) against a chunk
+    through `_body`, bit for bit on x, r, p, rz, pending, it, active and
+    the flag after every chunk. "all": image 0 as it comes, image 1 starts
+    with a restart pending, image 2 with p = 0 (a breakdown at the noise
+    floor, then a restart), image 3 gets an infinite residual entry once 8
+    iterations have run and stops at the next, inside a chunk;
+    "breakdown": p = 0 at the start; "non-finite": the infinite entry.
+    A chunk of 3 iterations ends on the second scalar state, which the
+    fused step copies back."""
+    from image_segmenter_tpu_torch.bench.bench import photo_batch
+    from image_segmenter_tpu_torch.kernels import cg_update as KCG
+    from image_segmenter_tpu_torch.pipeline.segment import Pipeline
+    from image_segmenter_tpu_torch.solvers import matting as MAT
+
+    monkeypatch.setattr(MAT, "CG_CHUNK", chunk)
+
+    pipe = Pipeline(model="u2netp", k=16, device="cuda")
+    x = torch.from_numpy(photo_batch(*bhw)).to(cuda)
+    mask = pipe.stages.cnn(pipe.session.module, x)
+    fused, plain = (next(pipe.stages.matting_program(x, mask))
+                    for _ in range(2))
+    assert fused.update == "fused" and fused.x.blocks[0].shape[1:] == (
+        576, 1024)
+    b = bhw[0]
+    inf_lane = {"all": 3, "non-finite": 0}.get(case)
+    for loop in (fused, plain):
+        if case == "all":
+            loop.pending[1] = True
+        if case in ("all", "breakdown"):
+            loop.p.blocks[0][2 if case == "all" else 0] = 0.0
+    hit, chunks = None, 0
+    while bool(plain.flag):
+        if inf_lane is not None and hit is None and int(plain.it.max()) >= 8:
+            hit = int(plain.it[inf_lane])
+            for loop in (fused, plain):
+                loop.r.blocks[0][inf_lane, 100, 200] = float("inf")
+        k3, cu = KMV.LAUNCHES, KCG.LAUNCHES
+        fused.step()
+        assert (KMV.LAUNCHES - k3, KCG.LAUNCHES - cu) == (chunk, 3 * chunk)
+        plain._step_plain()
+        chunks += 1
+        got, want = _cg_bits(fused), _cg_bits(plain)
+        for name in want:
+            assert torch.equal(got[name], want[name]), (chunks, name)
+    it = plain.it.tolist()
+    assert not bool(fused.flag) and chunks >= 2 and len(it) == b
+    if inf_lane is not None:
+        assert it[inf_lane] == hit + 1
+    for a, c in zip(fused.finish()[:4], plain.finish()[:4]):
+        assert torch.equal(a, c)
+
+
+def test_main_path_keeps_its_sha256(cuda):
+    """`Pipeline.run` on chip_smoke's phase-4 batch, compiled (its CG
+    through the fused update, counted at each replay) and eager, gives
+    chip_smoke's MAIN_PATH_SHA256."""
+    import chip_smoke as C
+
+    from image_segmenter_tpu_torch.bench.micro_precompute_hist import _sha
+    from image_segmenter_tpu_torch.kernels import cg_update as KCG
+    from image_segmenter_tpu_torch.pipeline.segment import Pipeline
+
+    pipe = Pipeline(model="u2netp", k=16, device="cuda")
+    x = torch.from_numpy(C.photo_batch(C.BATCH, C.H4K, C.W4K, seed=0)) \
+        .to(cuda)
+    pipe.run(x)  # warm-up and capture
+    k3, cu = KMV.LAUNCHES, KCG.LAUNCHES
+    out = pipe.run(x)
+    torch.cuda.synchronize()
+    assert KCG.LAUNCHES - cu == 3 * (KMV.LAUNCHES - k3 - 1) > 0
+    for got in (out, pipe.run_eager(x)):
+        sha = {name: _sha(t) for name, t in zip(got._fields, got)}
+        assert sha == C.MAIN_PATH_SHA256

@@ -18,7 +18,7 @@ from image_segmenter_tpu_torch.pipeline import segment as TS
 from image_segmenter_tpu_torch.solvers.kmeans import LLOYD_CHUNK
 from image_segmenter_tpu_torch.solvers.matting import CG_CHUNK
 from image_segmenter_tpu_torch.utils import profiling as P
-from image_segmenter_tpu_torch.utils.loops import drive
+from image_segmenter_tpu_torch.utils.loops import Loop, drive
 from test_torch_cuda import _photo_like
 
 # pytest runs several worker processes on the same cores: keep torch's
@@ -241,3 +241,86 @@ def test_graph_replays_are_spans():
     step.graph.left = 2
     step.replay()
     assert step.graph.replays == 5 and P.record().calls == []
+
+
+@pytest.mark.parametrize("update", ["fused", "plain"])
+def test_loop_steps_carry_the_update_path(update):
+    """A loop with an `update` path (solvers/matting.CGLoop) adds it to
+    its `loop.step` spans: (class, graph index, path) replayed from a
+    graph, (class, None, path) stepped eagerly. `fused_chunks` counts the
+    fused ones; `graph_replays` and `chunks` count as without the path."""
+    loop = _FakeLoop()
+    loop.update = update
+    seg = TCOMP._Graph(_FakeGraph(), 0, [0] * len(TCOMP.COUNTERS))
+    step = TCOMP._Graph(_FakeGraph(loop, 3), 1, [0] * len(TCOMP.COUNTERS),
+                        loop)
+
+    def call():
+        with P.span("pipeline.run"):
+            seg.replay()
+            step.replay()
+
+    _, _, rec = _traced(call)
+    (c,) = rec.calls
+    steps = [s.attrs for s in c.spans if s.name == "loop.step"]
+    assert steps == [("_FakeLoop", 1, update)] * 3
+    assert (c.flag_reads, c.graph_replays, c.chunks) == (4, 4,
+                                                         {"_FakeLoop": 3})
+    assert c.fused_chunks == (3 if update == "fused" else 0)
+
+
+class _EagerLoop(Loop):
+    """A loop stepped eagerly by `Loop.run`, `chunks` steps long."""
+
+    def __init__(self, chunks, update=None):
+        self.flag, self.left = torch.tensor(True), chunks
+        if update is not None:
+            self.update = update
+
+    def step(self):
+        self.left -= 1
+        self.flag.fill_(self.left > 0)
+
+
+@pytest.mark.parametrize("update", ["fused", "plain", None])
+def test_an_eager_loop_run_carries_its_update_path(update):
+    """`Loop.run`: every chunk a `loop.step` span, (class, None, path)
+    where the loop has an update path, (class,) where it has none; none
+    of them a graph replay; `fused_chunks` counts the fused ones."""
+    loop = _EagerLoop(3, update)
+
+    def call():
+        with P.span("pipeline.run"):
+            loop.run()
+
+    _, _, rec = _traced(call)
+    (c,) = rec.calls
+    steps = [s.attrs for s in c.spans if s.name == "loop.step"]
+    want = ("_EagerLoop",) if update is None else ("_EagerLoop", None, update)
+    assert steps == [want] * 3
+    assert (c.flag_reads, c.graph_replays, c.chunks) == (4, 0,
+                                                         {"_EagerLoop": 3})
+    assert c.fused_chunks == (3 if update == "fused" else 0)
+
+
+def test_an_eager_cg_run_counts_its_fused_chunks():
+    """`Loop.run` of a CGLoop on the CPU: every chunk a `loop.step` span
+    (CGLoop, None, "plain"), none of them a graph replay or fused."""
+    from test_torch_cg_update import _inputs
+
+    from image_segmenter_tpu_torch.solvers.matting import CGLoop
+
+    img, tri, x0 = _inputs(2)
+    loop = CGLoop(img, tri, rtol=1e-4, max_iter=50, x0=x0, half_stats=True)
+
+    def call():
+        with P.span("pipeline.run"):
+            loop.run()
+
+    _, _, rec = _traced(call)
+    (c,) = rec.calls
+    chunks = -(-int(loop.it.max()) // CG_CHUNK)
+    steps = [s.attrs for s in c.spans if s.name == "loop.step"]
+    assert steps == [("CGLoop", None, "plain")] * chunks and chunks >= 2
+    assert c.chunks == {"CGLoop": chunks} and c.graph_replays == 0
+    assert c.fused_chunks == 0
