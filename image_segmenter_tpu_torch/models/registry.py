@@ -16,6 +16,19 @@ Pre- and postprocessing follow rembg's sessions/base.py, as the JAX
 package's do: PIL-Lanczos resize to the model's input size, divide by the
 image max, mean/std normalisation, min-max normalisation of the predicted
 saliency, Lanczos resize back to the input's size.
+
+Segment Anything (`sam_vit_h`, and `sam`, rembg's id for the ViT-B size
+of the same code) is a model of another kind, "prompted": it takes one
+box a frame, and its pre- and postprocessing are SamPredictor's
+(models/sam.py: the longest side to 1024 by PIL's bilinear filter,
+0-255 values normalised by a mean and std a channel, zero padding to
+1024 x 1024, logits thresholded at 0). It runs through
+`Pipeline.run(imgs, boxes)`; `predict_mask` refuses it. Its weights are
+seeded (models/sam.seeded_init) by a generator on the session's device,
+since a host's generator takes tens of seconds for ViT-H's 641 M
+parameters: the same seed gives the same weights on the same kind of
+device, not on every device as for the CNNs. No checkpoint is
+discovered for it.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import numpy as np
 import torch
 
 from image_segmenter_tpu_torch.models import onnx_import as OIMP
+from image_segmenter_tpu_torch.models import sam as SAM
 from image_segmenter_tpu_torch.models import u2net as NETS
 from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.utils.backend import resolve_device
@@ -38,11 +52,18 @@ from image_segmenter_tpu_torch.utils.backend import resolve_device
 
 @dataclass(frozen=True)
 class ModelSpec:
-    arch: str                 # "u2net" | "u2netp" | "isnet"
+    arch: str                 # "u2net" | "u2netp" | "isnet" | "sam_vit_*"
     size: Tuple[int, int]     # network input (H, W)
     mean: Tuple[float, float, float]
     std: Tuple[float, float, float]
     out_ch: int = 1
+    # "saliency": resize to `size`, divide by the image max, min-max the
+    # output; "prompted": SamPredictor's path, one box a frame
+    kind: str = "saliency"
+
+    @property
+    def prompted(self) -> bool:
+        return self.kind == "prompted"
 
 
 SPECS = {
@@ -53,6 +74,8 @@ SPECS = {
     "u2net_cloth_seg": ModelSpec("u2net", (768, 768), (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), out_ch=4),
     "isnet-general-use": ModelSpec("isnet", (1024, 1024), (0.5, 0.5, 0.5), (1.0, 1.0, 1.0)),
     "isnet-anime": ModelSpec("isnet", (1024, 1024), (0.5, 0.5, 0.5), (1.0, 1.0, 1.0)),
+    "sam_vit_h": ModelSpec("sam_vit_h", (1024, 1024), SAM.PIXEL_MEAN, SAM.PIXEL_STD, kind="prompted"),
+    "sam": ModelSpec("sam_vit_b", (1024, 1024), SAM.PIXEL_MEAN, SAM.PIXEL_STD, kind="prompted"),
 }
 
 # Flax's variance_scaling truncated normal: a standard normal cut at +-2,
@@ -61,6 +84,8 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def _build(spec: ModelSpec, half: bool) -> torch.nn.Module:
+    if spec.prompted:
+        return SAM.build(spec.arch, half)
     if spec.arch == "u2net":
         return NETS.U2NET(out_ch=spec.out_ch, small=False, half=half)
     if spec.arch == "u2netp":
@@ -116,12 +141,26 @@ class Session:
         self.model_id = model
         self.spec = SPECS[model]
         self.half = half
-        module = _build(self.spec, half)
-        _seeded_init(module, seed)
+        if self.spec.prompted:
+            # every tensor is seeded here: skip the default init's draws
+            with torch.device("meta"):
+                module = _build(self.spec, half)
+            module = module.to_empty(device=self.device)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            SAM.seeded_init(module, gen)
+        else:
+            module = _build(self.spec, half)
+            _seeded_init(module, seed)
         self.weights_loaded = False
         self.load_report = None
         # an explicit path (tools/verify_checkpoint) overrides discovery
-        ckpt = ckpt_path if ckpt_path is not None else _checkpoint_path(model)
+        if self.spec.prompted and ckpt_path is not None:
+            raise ValueError(f"{model}: the checkpoint loader reads rembg "
+                             "`.onnx` files; load a SAM state dict with "
+                             "`Session.load_state_dict`")
+        ckpt = ckpt_path if ckpt_path is not None else (
+            None if self.spec.prompted else _checkpoint_path(model))
         if ckpt is not None:
             # Strict: a checkpoint that exists but maps only in part would
             # silently give garbage masks; refuse it instead (onnxruntime,
@@ -166,6 +205,9 @@ class Session:
         Multi-class heads (u2net_cloth_seg: 4 classes, class 0 =
         background) give the union of the non-background classes by
         argmax."""
+        if self.spec.prompted:
+            raise ValueError(f"{self.model_id} takes a box a frame: use "
+                             "Pipeline(model).run(imgs, boxes)")
         d0 = self._forward(rgb)
         if self.spec.out_ch > 1:
             mask = (torch.argmax(d0, dim=0) != 0).to(torch.float32)

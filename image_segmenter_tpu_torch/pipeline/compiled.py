@@ -20,7 +20,9 @@ into its memory pool, the code between two yields as one graph and each
 loop's `step()` as another. Capture does not execute, so each graph is
 replayed before the next is captured: the segment before a loop leaves
 its state and flag, and the loop's graph is replayed until the flag
-clears, one host read a chunk. Every graph of the program is captured at
+clears, one host read a chunk. A `utils.loops.Cut` the program yields
+ends a graph of straight code where no loop follows (a prompted model's
+network stage), and labels it. Every graph of the program is captured at
 the first call, whether or not its loop runs, and later calls replay
 them in the order of capture, which is what makes one pool safe to share
 between them. Each call copies the caller's tensors into the static
@@ -37,10 +39,12 @@ are reused by the next.
 The kernels' wrappers count their launches in Python, which a replay does
 not run. So the launches a capture counted are taken back and kept with
 its graph, and each replay adds them: `LAUNCHES` stays the count of
-kernels the card ran.
+kernels the card ran. models/sam.py's `FRAMES` and `PROMPTS` are
+counted the same way.
 
 Spans (utils/profiling.py): a call's copy in is `compiled.ingest`, each
-replay of straight code `compiled.segment`, each read of a loop's flag
+replay of straight code `compiled.segment` (attrs: the graph's index,
+and a cut's label), each read of a loop's flag
 `loop.flag` and each replay of its chunk `loop.step`, the clones
 `compiled.outputs`; the first call is the setup span `compiled.capture`.
 """
@@ -56,13 +60,16 @@ from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
-from image_segmenter_tpu_torch.utils.loops import warm_up
+from image_segmenter_tpu_torch.models import sam as SAM
+from image_segmenter_tpu_torch.utils.loops import Cut, warm_up
 from image_segmenter_tpu_torch.utils.profiling import setup_span, span
 
 # the launch counters of the main path's kernels, K1-K4, and the CG's
-# update (kernels/cg_update.py)
+# update (kernels/cg_update.py); the frames and prompts of SAM's network
+# stage (models/sam.py)
 COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
-            (KQ, "LAUNCHES"), (KCG, "LAUNCHES"))
+            (KQ, "LAUNCHES"), (KCG, "LAUNCHES"), (SAM, "FRAMES"),
+            (SAM, "PROMPTS"))
 
 # the capture stream of each device, shared by its programs
 _STREAMS: dict = {}
@@ -84,13 +91,16 @@ class _Graph:
     replay makes, and for a loop's step the flag that says whether to
     replay it again, the loop's iteration counts, its class's name and
     the attrs of its `loop.step` spans: (class, index), and the loop's
-    `update` path where it has one (solvers/matting.CGLoop)."""
+    `update` path where it has one (solvers/matting.CGLoop). Straight
+    code's `compiled.segment` spans carry (index,), or (index, label)
+    for the code before a `Cut`."""
 
     __slots__ = ("graph", "index", "launches", "flag", "it", "loop",
-                 "step_attrs")
+                 "step_attrs", "segment_attrs")
 
-    def __init__(self, graph, index, launches, loop=None):
+    def __init__(self, graph, index, launches, loop=None, label=None):
         self.graph, self.index, self.launches = graph, index, launches
+        self.segment_attrs = (index,) if label is None else (index, label)
         self.flag, self.it, self.loop = (None, None, None) if loop is None \
             else (loop.flag, loop.it, type(loop).__name__)
         update = getattr(loop, "update", None)
@@ -99,7 +109,7 @@ class _Graph:
 
     def replay(self) -> None:
         if self.flag is None:
-            with span("compiled.segment", self.index):
+            with span("compiled.segment", *self.segment_attrs):
                 self.graph.replay()
             _add_counts(self.launches)
             return
@@ -160,7 +170,8 @@ class Compiled:
         return [g.it.clone() for g in self._graphs if g.it is not None]
 
     def _record(self, fn, loop=None) -> None:
-        """Capture fn() into this program's pool and replay it."""
+        """Capture fn() into this program's pool and replay it; what fn
+        returns labels the graph."""
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         # capture_begin / capture_end, not `torch.cuda.graph`, whose entry
@@ -169,12 +180,12 @@ class Compiled:
         with torch.cuda.stream(self._stream):
             graph.capture_begin(pool=self._pool)
             try:
-                fn()
+                label = fn()
             finally:
                 graph.capture_end()
         launches = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-n for n in launches])  # a capture launches nothing
-        g = _Graph(graph, len(self._graphs), launches, loop)
+        g = _Graph(graph, len(self._graphs), launches, loop, label)
         self._graphs.append(g)
         g.replay()
 
@@ -193,6 +204,9 @@ class Compiled:
                 got["loop"] = gen.send(None)
             except StopIteration as stop:
                 got["out"] = stop.value
+                return None
+            return got["loop"].label if isinstance(got["loop"], Cut) \
+                else None
 
         while True:
             got.clear()
@@ -200,5 +214,6 @@ class Compiled:
             if "out" in got:
                 break
             loop = got["loop"]
-            self._record(loop.step, loop)
+            if not isinstance(loop, Cut):
+                self._record(loop.step, loop)
         self._out = tuple(got["out"])

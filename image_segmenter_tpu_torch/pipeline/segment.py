@@ -11,6 +11,17 @@ Counterpart of image_segmenter_tpu/pipeline/segment.py (BASELINE config
 3. black-filter ladder, grid colour sample, deterministic k-means, and
    the fused nearest-palette map (quantize).
 
+A prompted model (Segment Anything, `sam_vit_h` and `sam`:
+models/sam.py) replaces step 1 with its own network stage, which takes
+one box a frame: `Pipeline.run(imgs, boxes)`. SamPredictor's path:
+PIL-bilinear resize of the longest side to 1024, normalise and pad, the
+image encoder, the box's prompt encoding, the mask decoder (mask 0, the
+box's single output), the logits bilinear up to 1024, cropped and
+bilinear up to the frame, 255 where above 0. That full-size alpha enters
+step 2 where the CNN's Lanczos-upsampled mask does; the low-resolution
+logits and IoU predictions are outputs too (`PipelineOutput.logits`,
+`.iou`).
+
 One batch at a time: the JAX package's per-image `vmap`s are a batch
 axis written out. Four hand-written CUDA kernels run on a CUDA device: K1
 histogram (trimap quantiles, Otsu), K2 precompute and K3 matvec
@@ -23,6 +34,8 @@ Lloyd loop replayed a chunk at a time until their stop flag clears. The
 batch function is a program (`batch_program`) that yields each loop it
 reaches; the eager stage functions (`Pipeline.stages`, `run_eager`) drive
 the same programs op by op, which is how the CPU and the sharded run go.
+A prompted model's network stage ends in a `utils.loops.Cut`, so that it
+is a graph of its own, whose `compiled.segment` spans name the model.
 
 `Pipeline(sharding=batch_sharding(mesh))` spreads a batch over a (data,
 space) mesh of device slots (parallel/mesh.py), as the JAX package's
@@ -46,6 +59,7 @@ import torch
 from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.kernels.quantize import quantize_map
 from image_segmenter_tpu_torch.models import registry as REG
+from image_segmenter_tpu_torch.models import sam as SAM
 from image_segmenter_tpu_torch.ops import histogram as HG
 from image_segmenter_tpu_torch.ops import morphology as M
 from image_segmenter_tpu_torch.ops import resize as RZ
@@ -55,14 +69,26 @@ from image_segmenter_tpu_torch.pipeline.compiled import Compiled
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.solvers.matting import CGLoop
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
-from image_segmenter_tpu_torch.utils.loops import drive
+from image_segmenter_tpu_torch.utils.loops import Cut, drive
 from image_segmenter_tpu_torch.utils.profiling import setup_span, span
 
 
-class PipelineOutput(NamedTuple):
+class _Outputs(NamedTuple):
     rgba: torch.Tensor      # (B, H, W, 4) uint8 quantized cutout
     alpha: torch.Tensor     # (B, H, W) uint8 refined alpha
     palettes: torch.Tensor  # (B, K, 3) uint8
+
+
+class PipelineOutput(_Outputs):
+    """(rgba, alpha, palettes), as a tuple of three; a prompted model's
+    run also sets `logits`, the network's low-resolution mask logits
+    (B, 1, 256, 256) float32, and `iou`, its IoU predictions (B, 1)
+    float32. Both are None for the other models."""
+
+    def __new__(cls, rgba, alpha, palettes, logits=None, iou=None):
+        out = super().__new__(cls, rgba, alpha, palettes)
+        out.logits, out.iou = logits, iou
+        return out
 
 
 def _bview(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -244,12 +270,15 @@ def matting_solve_u8(rgb_s: torch.Tensor, trimap: torch.Tensor,
 
 class StageFns(NamedTuple):
     """The three pipeline phases as batch functions, eager, and the two
-    with a loop also as programs that yield it (pipeline/compiled.py)."""
+    with a loop also as programs that yield it (pipeline/compiled.py).
+    A prompted model's `cnn` takes the boxes too and gives (alpha0 u8
+    BHW, logits, iou); its `matting` starts from that full-size alpha0."""
     cnn: Callable        # (module, imgs u8 BHW3) -> mask_small u8 (B,nh,nw)
     matting: Callable    # (imgs, mask_small) -> (sharp bool BHW, alpha u8 BHW)
     quantize: Callable   # (imgs, sharp) -> (rgba u8 BHW4, palettes u8 BK3)
     matting_program: Callable   # matting as a program
     quantize_program: Callable  # quantize as a program
+    model: str = ""             # the model id, for the network's graph
 
 
 def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
@@ -268,10 +297,15 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
         small = RZ.resize_u8(imgs, (nh, nw), RZ.LANCZOS_PIL)
         return saliency_u8(module, small, mean, std)
 
+    def prompted_stage(module, imgs, boxes):
+        return SAM.prompted_logits(module, imgs, boxes, mean, std)
+
     def matting_program(imgs, mask_small):
         h, w = imgs.shape[1:3]
-        # upsample netmask to full res (LANCZOS like rembg post)
-        alpha0 = RZ.resize_u8(mask_small, (h, w), RZ.LANCZOS_PIL)
+        # upsample netmask to full res (LANCZOS like rembg post); a
+        # prompted model's alpha is full-size already
+        alpha0 = mask_small if spec.prompted else \
+            RZ.resize_u8(mask_small, (h, w), RZ.LANCZOS_PIL)
         # matting at <= matting_dim (reference shrink rule)
         if h > mdim or w > mdim:
             sh, sw = RZ.scale_to_max_dim(h, w, mdim)
@@ -301,17 +335,27 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
     def quantize_stage(imgs, sharp):
         return drive(quantize_program(imgs, sharp))
 
-    return StageFns(cnn_stage, matting_stage, quantize_stage,
-                    matting_program, quantize_program)
+    return StageFns(prompted_stage if spec.prompted else cnn_stage,
+                    matting_stage, quantize_stage, matting_program,
+                    quantize_program, session.model_id)
 
 
-def batch_program(stages: StageFns, module, imgs: torch.Tensor):
+def batch_program(stages: StageFns, module, imgs: torch.Tensor,
+                  boxes: Optional[torch.Tensor] = None):
     """The whole batch function as one program: (rgba, alpha, palettes)
-    of a (B, H, W, 3) u8 batch on the stages' device."""
-    mask = stages.cnn(module, imgs)
+    of a (B, H, W, 3) u8 batch on the stages' device; with `boxes` (a
+    prompted model's (B, 4) float32) also (logits, iou), the network
+    stage cut into a graph of its own."""
+    extra = ()
+    if boxes is None:
+        mask = stages.cnn(module, imgs)
+    else:
+        mask, logits, iou = stages.cnn(module, imgs, boxes)
+        yield Cut(stages.model)
+        extra = (logits, iou)
     sharp, alpha = yield from stages.matting_program(imgs, mask)
     rgba, palettes = yield from stages.quantize_program(imgs, sharp)
-    return rgba, alpha, palettes
+    return (rgba, alpha, palettes) + extra
 
 
 def network_on(module: torch.nn.Module, dev: torch.device,
@@ -334,18 +378,41 @@ def _as_batch(imgs_u8) -> torch.Tensor:
     return x
 
 
+def _as_boxes(boxes, session, batch: int):
+    """A prompted model's (B, 4) float32 boxes as a tensor; None for the
+    other models. Raises where a box is missing or not wanted."""
+    model = session.model_id
+    if not session.spec.prompted:
+        if boxes is not None:
+            raise ValueError(f"{model} takes no boxes; only a prompted "
+                             "model (sam_vit_h, sam) does")
+        return None
+    if boxes is None:
+        raise ValueError(f"{model} takes one box a frame: run(imgs, boxes) "
+                         "with boxes (B, 4) float32 x0, y0, x1, y1")
+    b = torch.as_tensor(boxes)
+    if tuple(b.shape) != (batch, 4) or b.dtype != torch.float32:
+        raise ValueError(f"{model}: boxes are ({batch}, 4) float32, got "
+                         f"{tuple(b.shape)} {b.dtype}")
+    return b
+
+
 class Pipeline:
     """End-to-end pipeline for a fixed model id, on one device or sharded
     over a mesh.
 
     `run(imgs)` takes a (B, H, W, 3) uint8 batch (numpy or tensor) and
-    returns a PipelineOutput of tensors on `device`. device defaults to
-    "cuda" and raises when CUDA is absent; it never falls back to the CPU.
-    On a CUDA device `run` is compiled, as the JAX `Pipeline` is: the
-    first call of each input shape captures the batch function as CUDA
-    graphs (pipeline/compiled.py; model, B, H, W and device key the
-    program), and every call replays them. `run_eager` runs the same
-    stages op by op, which is what `run` does on the CPU. With `sharding`
+    returns a PipelineOutput of tensors on `device`; a prompted model
+    (`sam_vit_h`, `sam`) takes `run(imgs, boxes)`, one (x0, y0, x1, y1)
+    box a frame as (B, 4) float32 numpy or tensor, which every other
+    model refuses. device defaults to "cuda" and raises when CUDA is
+    absent; it never falls back to the CPU. On a CUDA device `run` is
+    compiled, as the JAX `Pipeline` is: the first call of each input
+    shape captures the batch function as CUDA graphs
+    (pipeline/compiled.py; model, B, H, W and device key the program;
+    the boxes are its second input), and every call replays them.
+    `run_eager` runs the same stages op by op, which is what `run` does
+    on the CPU. With `sharding`
     (`batch_sharding(mesh)`; see the module docstring) the run lives on
     the mesh's slots, eagerly, `device` is not read, and the outputs are
     on the mesh's first slot.
@@ -384,34 +451,39 @@ class Pipeline:
             self._copies = {}
             self.programs = {}  # the compiled run's programs, by key
 
-    def run(self, imgs_u8) -> PipelineOutput:
+    def run(self, imgs_u8, boxes=None) -> PipelineOutput:
         with span("pipeline.run"):  # a call's root (utils/profiling.py)
             x = _as_batch(imgs_u8)
+            b = _as_boxes(boxes, self.session, x.shape[0])
             if self.sharding is not None or self.device.type != "cuda":
-                return self._run(x, None)
+                return self._run(x, None, b)
+            xs = (x,) if b is None else (x, b)
             key = (self.session.model_id, *x.shape[:3], str(self.device))
             prog = self.programs.get(key)
             if prog is None:
                 stages, module = self.stages, self.session.module
                 prog = Compiled(
-                    lambda imgs: batch_program(stages, module, imgs),
-                    [(x.shape, x.dtype)], self.device)
-                out = PipelineOutput(*prog(x))
+                    lambda *ins: batch_program(stages, module, *ins),
+                    [(t.shape, t.dtype) for t in xs], self.device)
+                out = PipelineOutput(*prog(*xs))
                 self.programs[key] = prog  # kept once its capture succeeded
                 return out
-            return PipelineOutput(*prog(x))
+            return PipelineOutput(*prog(*xs))
 
-    def run_eager(self, imgs_u8) -> PipelineOutput:
+    def run_eager(self, imgs_u8, boxes=None) -> PipelineOutput:
         """`run` op by op through `stages`, never from a graph: the plain
         counterpart of the compiled run, with its bytes."""
-        return self._run(_as_batch(imgs_u8), None)
+        x = _as_batch(imgs_u8)
+        return self._run(x, None, _as_boxes(boxes, self.session, x.shape[0]))
 
     def run_from_mask(self, imgs_u8, mask_small) -> PipelineOutput:
         """The matting and quantize stages from a given CNN mask (B, nh,
-        nw) uint8, as `run` would take them after its CNN stage."""
+        nw) uint8, as `run` would take them after its CNN stage (for a
+        prompted model the full-size alpha (B, H, W) its network stage
+        gives)."""
         return self._run(_as_batch(imgs_u8), torch.as_tensor(mask_small))
 
-    def _run(self, x: torch.Tensor, mask_small) -> PipelineOutput:
+    def _run(self, x: torch.Tensor, mask_small, boxes=None) -> PipelineOutput:
         groups = [(self.device, self.stages, 0, x.shape[0])] \
             if self.sharding is None else [
                 (dev, st, b0, b1) for (dev, st), (b0, b1) in zip(
@@ -421,16 +493,21 @@ class Pipeline:
         outs = []
         for dev, st, b0, b1 in groups:
             xi = to_slot(x[b0:b1], dev)
-            if mask_small is None:
+            extra = ()
+            if mask_small is not None:
+                mi = to_slot(mask_small[b0:b1], dev)
+            elif boxes is None:
                 mi = st.cnn(network_on(self.session.module, dev,
                                        self._copies), xi)
             else:
-                mi = to_slot(mask_small[b0:b1], dev)
+                mi, *extra = st.cnn(network_on(self.session.module, dev,
+                                               self._copies), xi,
+                                    to_slot(boxes[b0:b1], dev))
             sharp, alpha = st.matting(xi, mi)
             rgba, palettes = st.quantize(xi, sharp)
-            outs.append((rgba, alpha, palettes))
+            outs.append((rgba, alpha, palettes, *extra))
         if len(outs) == 1:
             return PipelineOutput(*outs[0])
         return PipelineOutput(*(torch.cat([to_slot(o[i], self.device)
                                            for o in outs])
-                                for i in range(3)))
+                                for i in range(len(outs[0]))))

@@ -75,6 +75,9 @@ class StagedPipeline:
     def __init__(self, model: str = "u2netp", k: int = 16,
                  matting_dim: Optional[int] = None, cg_iters: int = 200,
                  meshes=None, device=None):
+        if model in REG.SPECS and REG.SPECS[model].prompted:
+            raise ValueError(f"{model} takes a box a frame; the staged run "
+                             "has no prompts: use Pipeline.run(imgs, boxes)")
         self.meshes = tuple(meshes) if meshes is not None \
             else split_stage_meshes()
         if len(self.meshes) != 3:

@@ -12,9 +12,12 @@ yields each loop it reaches, an object with
 - `run()`: the eager loop, `step()` until the flag clears (`Loop.run`)
   or an equivalent that reads the host more often;
 
-and returns its outputs. `drive` runs a program eagerly; `warm_up` runs
-it with each loop stepped once, which is what pipeline/compiled.Compiled
-does before it captures the program as CUDA graphs.
+and returns its outputs. A program may also yield a `Cut`, where its
+straight code is to end a graph (pipeline/compiled.Compiled); run
+eagerly, a cut does nothing. `drive` runs a program eagerly; `warm_up`
+runs it with each loop stepped once, which is what
+pipeline/compiled.Compiled does before it captures the program as CUDA
+graphs.
 """
 
 from __future__ import annotations
@@ -40,6 +43,20 @@ class Loop:
                 self.step()
 
 
+class Cut:
+    """Yielded where a program's straight code since its last yield is to
+    be a graph of its own, whose `compiled.segment` spans carry `label`
+    (a prompted model's network stage). No loop: nothing to step."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def run(self) -> None:
+        pass
+
+    step = run
+
+
 def drive(program, loops: list | None = None):
     """Run a program (a generator) eagerly: every loop it yields runs to
     its end, and joins `loops` where a list is given. Returns what the
@@ -48,7 +65,7 @@ def drive(program, loops: list | None = None):
         loop = next(program)
         while True:
             loop.run()
-            if loops is not None:
+            if loops is not None and not isinstance(loop, Cut):
                 loops.append(loop)
             loop = program.send(None)
     except StopIteration as stop:

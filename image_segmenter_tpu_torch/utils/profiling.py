@@ -34,7 +34,8 @@ The spans of the program, by name:
 - `compiled.ingest`, attrs (program,): pipeline/compiled.Compiled's copy
   of the caller's tensors into its static inputs, which blocks the host;
 - `compiled.segment`, attrs (graph index,): the replay of one graph of
-  straight code;
+  straight code; (graph index, model id) for a prompted model's network
+  stage (models/sam.py), a graph of its own;
 - `loop.flag`, attrs (loop class,): the host's read of a loop's stop flag,
   between a loop's graph replays and in utils/loops.Loop.run;
 - `loop.step`, attrs (loop class, graph index): the replay of a loop's
@@ -46,7 +47,15 @@ The spans of the program, by name:
 - `compiled.capture`, attrs (program,) (a setup span): a program's first
   call, its warm-up, its captures and their first replays;
 - `pipeline.init`, attrs (model,) (a setup span): `Pipeline()`, its
-  session with seeded weights and its stage functions.
+  session with seeded weights and its stage functions;
+- `sam.encoder`, `sam.prompt`, `sam.decoder` (setup spans):
+  models/sam.Sam's image encoder, prompt encoder and mask decoder, each
+  time Python runs them: at a program's warm-up and capture on the card,
+  at every eager call.
+
+Counters: besides each call's counters above, the program counts the
+frames and box prompts of SAM's network stage (`models.sam.FRAMES`,
+`PROMPTS`, added at each replay like the kernels' `LAUNCHES`).
 
 A program is numbered in the order programs were made, so a call's
 `compiled.ingest` names the `compiled.capture` of the program it
