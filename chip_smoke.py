@@ -6,8 +6,8 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
-2. build: compiles the CUDA kernels from kernels/csrc with nvcc (K1-K8
-   and the matting CG's update);
+2. build: compiles the CUDA kernels from kernels/csrc with nvcc (K1-K8,
+   the matting CG's update and SAM's encoder attention);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at ragged shapes, with warm timings, its bound
    (the least time the card could take: bytes over the memory rate or
@@ -37,7 +37,15 @@ Phases, each raising (and exiting non-zero) on failure:
    restart, break down, converge and stop on a non-finite residual inside
    a chunk; then bench/micro_cg_iter.run at 4 x 576 x 1024: an iteration
    from a CUDA graph, plain against fused, and each kernel's device time
-   beside its bound (5, 7 and 4.875 planes);
+   beside its bound (5, 7 and 4.875 planes). SAM's encoder attention
+   (kernels/sam_attention.py, no TPU kernel: the JAX package has no SAM)
+   at ViT-H's global (4 x 16 x 4096, d 80) and windowed (100 x 16 x 196)
+   shapes against its plain version, timed one launch, back to back and
+   from a CUDA graph beside its bound (the products at the bf16 rate, or
+   q, k, v, the output and the tables once at the memory's) and beside
+   the library path it replaced (the bias as a bf16 mask and
+   F.scaled_dot_product_attention), each output within 2^-7 of its row's
+   probability-weighted |v| and of its own size;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, compiled (captured as CUDA graphs at its first call,
    replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
@@ -48,7 +56,11 @@ Phases, each raising (and exiting non-zero) on failure:
    that leaves the first call's outputs alone, a bit-identical third run, the
    compiled wall beside the eager stages', the device busy time and idle
    share, the peak memory, and a second shape (2 x 1080 x 1920) with a
-   program of its own;
+   program of its own; then Pipeline(model="sam_vit_h", k=16).run on the
+   same batch with one box a frame (the SAM cell's shape), compiled: the
+   launches of a replayed call (SAM's attention one a block, 32; K1-K4
+   and the CG's update from the stages after the network), output
+   checks, the eager run's bytes, a bit-identical second replay, the wall;
 5. card against CPU: the same pipeline and weights on a 720 x 1280 image
    on the card and on the CPU (plain path), end to end, and the matting
    and quantize stages from the same CNN mask on both;
@@ -232,6 +244,7 @@ from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
+from image_segmenter_tpu_torch.kernels import sam_attention as KSA
 from image_segmenter_tpu_torch.models import onnx_writer as ONNX_WRITER
 from image_segmenter_tpu_torch.models import registry as REG
 from image_segmenter_tpu_torch.models.u2net import U2NET
@@ -299,6 +312,8 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
     "cg_update": (KCG, "LAUNCHES", _CSRC + "cg_update.cu",
                   "none (XLA fuses the CG's update around "
                   + _TPU + "pallas_matvec.py:271)"),
+    "sam_attention": (KSA, "LAUNCHES", _CSRC + "sam_attention.cu",
+                      "none (the JAX package has no SAM)"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
 # the main path on one card: also the CG's update, which a solve split
@@ -1044,6 +1059,122 @@ def check_cg_update(label: str, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# SAM's encoder attention at ViT-H's two shapes: (B', heads, h, w, d)
+SAM_ATTN_SHAPES = {"global": (4, 16, 64, 64, 80),
+                   "window": (100, 16, 14, 14, 80)}
+BF16_OPS = 989e12  # dense bfloat16 tensor-core peak of one H100 SXM
+
+
+def sam_attn_operands(dev, b, nh, h, w, d, seed):
+    """q, k, v as views of one (b, h w, 3 nh d) bfloat16 projection, rel_h
+    and rel_w from models/sam.Attention's einsums on random tables, the
+    scale."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h * w, 3 * nh * d, generator=g, device=dev)
+    q, k, v = x.to(torch.bfloat16).view(b, h * w, 3, nh, d) \
+        .permute(2, 0, 3, 1, 4).unbind(0)
+    rh = (0.1 * torch.randn(h, h, d, generator=g, device=dev)) \
+        .to(torch.bfloat16)
+    rw = (0.1 * torch.randn(w, w, d, generator=g, device=dev)) \
+        .to(torch.bfloat16)
+    r_q = q.reshape(b * nh, h, w, d)
+    return (q, k, v, torch.einsum("bhwc,hkc->bhwk", r_q, rh),
+            torch.einsum("bhwc,wkc->bhwk", r_q, rw), d ** -0.5)
+
+
+def sam_attn_tolerance(ops, ref):
+    """How far the kernel may lie from its plain version, elementwise: both
+    round the same bias and sum in float32, but each rounds a row's
+    unnormalised probabilities to bfloat16 against its own running
+    maximum (each within 2^-8 relative, so the two within 2^-7: the
+    output within 2^-7 of the row's probability-weighted |v|), and each
+    rounds the output to bfloat16 (the two within one unit in the last
+    place, 2^-7 of |ref|)."""
+    q, k, v, rel_h, rel_w, scale = ops
+    wv = KSA.attention_plain(q, k, v.abs(), rel_h, rel_w, scale)
+    return 2 ** -7 * (wv.float() + ref.float().abs())
+
+
+def sam_attn_library(q, k, v, rel_h, rel_w, scale):
+    """What the kernel replaced, a yardstick the port never calls: the
+    bias formed as a bfloat16 mask (rows padded to 8 keys) and
+    F.scaled_dot_product_attention with it, on contiguous q, k, v."""
+    import torch.nn.functional as F
+
+    b, nh, n, _ = q.shape
+    _, h, w, _ = rel_h.shape
+    rows = torch.empty(b * nh, n, -(-n // 8) * 8, dtype=q.dtype,
+                       device=q.device)[:, :, :n]
+    torch.add(rel_h[:, :, :, :, None], rel_w[:, :, :, None, :],
+              out=rows.view(b * nh, h, w, h, w))
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=rows.view(b, nh, n, n), scale=scale)
+
+
+def check_sam_attention(label: str, dev) -> dict:
+    """The kernel against its plain version at ViT-H's two shapes, timed
+    one launch, back to back and from a CUDA graph, beside its bound and
+    the library path it replaced."""
+    rec = {}
+    for name, (b, nh, h, w, d) in SAM_ATTN_SHAPES.items():
+        ops = sam_attn_operands(dev, b, nh, h, w, d, seed=b)
+        q, k, v, rel_h, rel_w, scale = ops
+        n = h * w
+        got = KSA.attention(*ops)
+        ref = KSA.attention_plain(*ops)
+        diff = (got.float() - ref.float()).abs()
+        err = float(diff.max())
+        # tests/test_torch_cuda.py's tolerance: 2^-7 of the row's
+        # probability-weighted |v| and of |ref|
+        tol = sam_attn_tolerance(ops, ref)
+        o_med = float(ref.float().abs().median())
+        tol_med = float(tol.median())
+        worst = float((diff / tol).max())
+        if worst > 1.0:
+            fail(f"sam_attention {name}: {err} from the plain version, "
+                 f"{worst:.3f} of the tolerance")
+        del ref, diff, tol
+        lib_ops = (q.contiguous(), k.contiguous(), v.contiguous(), rel_h,
+                   rel_w, scale)
+        lib = sam_attn_library(*lib_ops)
+        lib_err = float((lib.permute(0, 2, 1, 3).reshape(b, n, nh * d)
+                         .float() - got.float()).abs().max())
+        fn = lambda: KSA.attention(*ops)  # noqa: E731
+        ms = median_ms(fn)
+        b2b = median_ms(fn, inner=BACK_TO_BACK)
+        graph = BENCH_K12.graph_ms(fn, BACK_TO_BACK, REPS)
+        plain_ms = median_ms(lambda: KSA.attention_plain(*ops), reps=3)
+        library_ms = median_ms(lambda: sam_attn_library(*lib_ops))
+        flops = 4.0 * b * nh * n * n * d
+        nbytes = 2.0 * (4 * b * n * nh * d + b * nh * n * (h + w))
+        t_ops, t_bytes = flops / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
+        bd = {"bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        rec[name] = {"max_abs_err": err, "err_over_tol": worst,
+                     "library_err": lib_err, "ms": ms,
+                     "ms_back_to_back": b2b, "ms_graph": graph,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "tflops_graph": flops / graph / 1e9, **bd}
+        print(f"[kernels] sam_attention {name} ({b}, {nh}, {n}, {d}) grid "
+              f"{h} x {w} bf16: {err:.5f} from plain, at most {worst:.3f} "
+              f"of the tolerance (median tolerance {tol_med:.5f}, median "
+              f"|o| {o_med:.5f}; the library path {lib_err:.5f} from the "
+              f"kernel); "
+              f"{ms:.4f} ms one launch, {b2b:.4f} back to back, {graph:.4f} "
+              f"from a CUDA graph ({flops / graph / 1e9:.1f} TFLOP/s), "
+              f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({bd['bound_ms'] / graph:.3f} of it); plain {plain_ms:.3f} "
+              f"ms; bias add + SDPA {library_ms:.4f} ms ({label})")
+        del lib, got
+    torch.cuda.empty_cache()
+    g = rec["global"]
+    return {**{k: g[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "ms_graph")},
+            "ms_back_to_back": g["ms_back_to_back"], "shapes": rec}
+
+
+# ---------------------------------------------------------------------------
 # phase 4 and 5: the slice
 # ---------------------------------------------------------------------------
 
@@ -1233,6 +1364,73 @@ def run_slice(label: str):
           f"{(t[2] - t[1]) * 1e3:.3f} ({KMV.LAUNCHES - mv0} matvec launches), "
           f"quantize {(t[3] - t[2]) * 1e3:.3f} ({label})")
     return launches, out[0][0].cpu().numpy()
+
+
+# one (x0, y0, x1, y1) box a frame of the slice's batch: whole 1080 tiles,
+# as the SAM cell's traffic draws them, and one across tiles
+SAM_BOXES = ((0, 0, 1079, 1079), (1080, 1080, 2159, 2159),
+             (2160, 0, 3239, 1079), (1500, 700, 3100, 2000))
+
+
+def run_sam_slice(label: str) -> dict:
+    """Phase 4, SAM: Pipeline(model="sam_vit_h", k=16).run on phase 4's
+    batch with one box a frame, the SAM cell's path. The first call
+    captures the program; the launches of one replayed call are counted
+    after zero_counts(), as for the CNN. Returns them."""
+    from image_segmenter_tpu_torch.models import sam as SAM
+
+    x = torch.from_numpy(photo_batch(BATCH, H4K, W4K, seed=0)).to("cuda")
+    boxes = np.asarray(SAM_BOXES, np.float32)
+    pipe = Pipeline(model="sam_vit_h", k=16, device="cuda")
+    depth = pipe.session.module.cfg.depth
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(x, boxes)  # warm-up and capture
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+
+    zero_counts()
+    frames0 = SAM.FRAMES
+    out = pipe.run(x, boxes)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[sam] first call (warm-up and capture): {t_capture:.3f} s; "
+          f"kernel launches in one Pipeline.run (from the replays): "
+          f"{launches}; frames {SAM.FRAMES - frames0} ({label})")
+    if launches["sam_attention"] != depth:
+        fail(f"the SAM path launched the attention kernel "
+             f"{launches['sam_attention']} times a call, not {depth} (one "
+             f"a block)")
+    for name in SLICE_PATH:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the SAM path")
+    if SAM.FRAMES - frames0 != BATCH:
+        fail(f"a replay counted {SAM.FRAMES - frames0} frames, not {BATCH}")
+
+    check_output(out, 16, BATCH, H4K, W4K)
+    if out.logits.shape[0] != BATCH or not bool(
+            torch.isfinite(out.logits).all() & torch.isfinite(out.iou).all()):
+        fail(f"SAM's logits {tuple(out.logits.shape)} or IoU are not "
+             f"finite")
+    every = lambda o: (*o, o.logits, o.iou)  # noqa: E731
+    keep = [t.clone() for t in every(out)]
+    if not all(torch.equal(a, b)
+               for a, b in zip(keep, every(pipe.run(x, boxes)))):
+        fail("a second SAM replay is not bit-identical")
+    if not all(torch.equal(a, b)
+               for a, b in zip(keep, every(pipe.run_eager(x, boxes)))):
+        fail("the compiled SAM run's bytes are not the eager run's")
+    walls = _walls(lambda: pipe.run(x, boxes), 5)
+    wall = statistics.median(walls)
+    print(f"[sam] Pipeline(sam_vit_h, k=16) {BATCH}x{H4K}x{W4K}, a box a "
+          f"frame: outputs ok, the eager run's bytes, a second replay "
+          f"bit-identical; compiled {wall * 1e3:.3f} ms/batch (median of "
+          f"{len(walls)}: {', '.join(f'{t * 1e3:.3f}' for t in walls)}), "
+          f"{BATCH * H4K * W4K / 1e6 / wall:.3f} MP/s device-resident "
+          f"({label})")
+    del pipe, out, keep
+    torch.cuda.empty_cache()
+    return launches
 
 
 def card_vs_cpu(label: str) -> None:
@@ -3111,8 +3309,10 @@ def main() -> None:
         "quantize_flat": check_quantize_flat(label, dev),
         "hist_variants": check_hist_variants(label, dev),
         "cg_update": check_cg_update(label, dev),
+        "sam_attention": check_sam_attention(label, dev),
     }
     launches, frame = run_slice(label)
+    launches["sam_attention"] = run_sam_slice(label)["sam_attention"]
     card_vs_cpu(label)
     launches.update(run_variants(label))
     run_compat(label)

@@ -76,6 +76,14 @@ SIGNATURES = {
     "iseg_cg_direction": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _F32, _I32, _I32, _I64, _I32, _P,
                           _P],
+    # (q, its strides over window or frame, head, token; k, its; v, its;
+    #  rel_h bf16 (B' heads, h, w, h), its four strides; rel_w (B' heads,
+    #  h, w, w), its; B', heads, h, w, d, scale, out bf16 (B', h w,
+    #  heads d), stream)
+    "iseg_sam_attention": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P,
+                           _I64, _I64, _I64, _P, _I64, _I64, _I64, _I64, _P,
+                           _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
+                           _I32, _F32, _P, _P],
 }
 
 _lib = None

@@ -22,9 +22,12 @@ Precision (`half`, the Session's switch): with `half=False` everything
 is float32 (the parameters' own type), the official code's arithmetic
 op for op. With `half=True` the encoder's patch embedding, linears,
 attention and neck convolutions take bfloat16 operands and accumulate in
-float32: attention goes through `F.scaled_dot_product_attention` with
-the decomposed bias as a bfloat16 additive mask, whose softmax
-statistics are float32. The residual stream and the LayerNorms stay
+float32: attention goes through kernels/sam_attention.attention, which
+adds the decomposed bias, rounded to bfloat16 as an additive mask would
+be, inside its score tiles and keeps the softmax statistics in float32
+(on the CPU its plain version, the bias materialised). It reads q, k and
+v in place from the qkv projection and hands `proj` its output as it
+is: one launch a block. The residual stream and the LayerNorms stay
 float32. The prompt encoder and the mask decoder are float32 in both.
 The bfloat16 copies of the encoder's weights and of its gathered
 relative-position tables are made once (`Sam.derive`: after seeding,
@@ -48,6 +51,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from image_segmenter_tpu_torch.kernels import sam_attention as SA
 from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.utils.profiling import setup_span
 
@@ -214,30 +218,26 @@ class Attention(nn.Module):
         b, h, w, _ = x.shape
         nh = self.num_heads
         qkv = self.qkv(x).reshape(b, h * w, 3, nh, -1).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv.reshape(3, b * nh, h * w, -1).unbind(0)
         low = x.dtype == torch.bfloat16
+        if low:
+            # (b, nh, h w, c) views of the projection, which the kernel
+            # reads in place
+            q, k, v = qkv.unbind(0)
+        else:
+            q, k, v = qkv.reshape(3, b * nh, h * w, -1).unbind(0)
         rh, rw = (self.rh_low, self.rw_low) if low else self.tables()
         r_q = q.reshape(b * nh, h, w, -1)
         rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh)
         rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw)
         if low:
-            # the bias's rows padded to a multiple of 8 keys: the attention
-            # kernels take such a mask as it is, and PyTorch copies any
-            # other into a padded one
-            n = h * w
-            rows = torch.empty(b * nh, n, -(-n // 8) * 8, dtype=q.dtype,
-                               device=q.device)[:, :, :n]
-            torch.add(rel_h[:, :, :, :, None], rel_w[:, :, :, None, :],
-                      out=rows.view(b * nh, h, w, h, w))
-            x = F.scaled_dot_product_attention(
-                q.view(b, nh, n, -1), k.view(b, nh, n, -1),
-                v.view(b, nh, n, -1), attn_mask=rows.view(b, nh, n, n),
-                scale=self.scale)
-        else:
-            attn = (q * self.scale) @ k.transpose(-2, -1)
-            attn = (attn.view(b * nh, h, w, h, w) + rel_h[:, :, :, :, None]
-                    + rel_w[:, :, :, None, :]).view(b * nh, h * w, h * w)
-            x = attn.softmax(dim=-1) @ v
+            # the bias formed inside the kernel's score tiles; the output
+            # comes as (b, h w, nh c)
+            x = SA.attention(q, k, v, rel_h, rel_w, self.scale)
+            return self.proj(x.view(b, h, w, -1))
+        attn = (q * self.scale) @ k.transpose(-2, -1)
+        attn = (attn.view(b * nh, h, w, h, w) + rel_h[:, :, :, :, None]
+                + rel_w[:, :, :, None, :]).view(b * nh, h * w, h * w)
+        x = attn.softmax(dim=-1) @ v
         x = x.view(b, nh, h, w, -1).permute(0, 2, 3, 1, 4).reshape(b, h, w,
                                                                    -1)
         return self.proj(x)

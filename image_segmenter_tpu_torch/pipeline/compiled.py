@@ -40,7 +40,7 @@ The kernels' wrappers count their launches in Python, which a replay does
 not run. So the launches a capture counted are taken back and kept with
 its graph, and each replay adds them: `LAUNCHES` stays the count of
 kernels the card ran. models/sam.py's `FRAMES` and `PROMPTS` are
-counted the same way.
+counted the same way, and so is kernels/sam_attention.py's `LAUNCHES`.
 
 Spans (utils/profiling.py): a call's copy in is `compiled.ingest`, each
 replay of straight code `compiled.segment` (attrs: the graph's index,
@@ -60,16 +60,18 @@ from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
+from image_segmenter_tpu_torch.kernels import sam_attention as KSA
 from image_segmenter_tpu_torch.models import sam as SAM
 from image_segmenter_tpu_torch.utils.loops import Cut, warm_up
 from image_segmenter_tpu_torch.utils.profiling import setup_span, span
 
 # the launch counters of the main path's kernels, K1-K4, and the CG's
 # update (kernels/cg_update.py); the frames and prompts of SAM's network
-# stage (models/sam.py)
+# stage (models/sam.py) and its encoder's attention kernel
+# (kernels/sam_attention.py)
 COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
             (KQ, "LAUNCHES"), (KCG, "LAUNCHES"), (SAM, "FRAMES"),
-            (SAM, "PROMPTS"))
+            (SAM, "PROMPTS"), (KSA, "LAUNCHES"))
 
 # the capture stream of each device, shared by its programs
 _STREAMS: dict = {}

@@ -17,6 +17,7 @@ from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
+from image_segmenter_tpu_torch.kernels import sam_attention as SA
 
 pytestmark = pytest.mark.cuda
 
@@ -1099,3 +1100,125 @@ def test_main_path_keeps_its_sha256(cuda):
     for got in (out, pipe.run_eager(x)):
         sha = {name: _sha(t) for name, t in zip(got._fields, got)}
         assert sha == C.MAIN_PATH_SHA256
+
+
+# ---------------------------------------------------------------------------
+# SAM's encoder attention (kernels/sam_attention.py)
+# ---------------------------------------------------------------------------
+
+def _sam_attn_operands(dev, b, nh, h, w, d, seed):
+    """q, k, v as views of one (b, h w, 3 nh d) bfloat16 projection, rel_h
+    and rel_w from models/sam.Attention's einsums (chip_smoke's)."""
+    import chip_smoke as C
+
+    return C.sam_attn_operands(dev, b, nh, h, w, d, seed)
+
+
+def _assert_attention_close(got, ref, ops):
+    """The kernel and its plain version round the same bias and sum in
+    float32; they differ where P is rounded to bfloat16 against another
+    running maximum (each weight by at most 2^-7 relative between the two,
+    so the output by at most 2^-7 of the row's probability-weighted |v|)
+    and in the output's last bit (2^-7 of |ref| where the float32 values
+    straddle a rounding): chip_smoke.sam_attn_tolerance, elementwise."""
+    import chip_smoke as C
+
+    diff = (got.float() - ref.float()).abs()
+    tol = C.sam_attn_tolerance(ops, ref)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+SAM_ATTN_SHAPES = {  # (B', heads, h, w, d)
+    "vith_global": (4, 16, 64, 64, 80),
+    "vith_window": (100, 16, 14, 14, 80),
+    "vitb_global": (4, 12, 64, 64, 64),
+    "tiny_window": (18, 2, 4, 4, 16),
+    "tiny_global": (2, 2, 10, 10, 16),
+    "ragged": (3, 5, 7, 9, 64),
+    "wide_rows": (2, 3, 5, 40, 16),
+}
+
+
+@pytest.mark.parametrize("shape", list(SAM_ATTN_SHAPES))
+def test_sam_attention_kernel_matches_its_plain_version(cuda, shape):
+    """ViT-H's global (4 x 16 x 4096, d 80, a 64 x 64 grid: key tiles of
+    one grid row) and windowed (100 x 16 x 196, d 80, 14 x 14: tiles of
+    two grid rows of 16 slots, 14 of them keys, the last tile half off
+    the grid) attention, ViT-B's global one, the test config's, an odd
+    grid and one of 40-key rows in 64-slot tiles, against the plain
+    version on the same strided views; one launch a call."""
+    b, nh, h, w, d = SAM_ATTN_SHAPES[shape]
+    ops = _sam_attn_operands(cuda, b, nh, h, w, d, seed=b + d)
+    before = SA.LAUNCHES
+    got = SA.attention(*ops)
+    assert SA.LAUNCHES == before + 1
+    assert got.shape == (b, h * w, nh * d) and got.dtype == torch.bfloat16
+    _assert_attention_close(got, SA.attention_plain(*ops), ops)
+    # a dropped bias is far outside that tolerance
+    zero = torch.zeros_like(ops[3])
+    moved = (SA.attention(*ops[:3], zero, ops[4], ops[5]).float()
+             - got.float()).abs().max()
+    assert float(moved) > 8 * 2 ** -8 * float(ops[2].float().abs().max())
+
+
+def test_sam_attention_kernel_replays_from_a_cuda_graph(cuda):
+    """At ViT-H's two shapes, the kernel captured in a CUDA graph and
+    replayed gives the eager call's bits; the capture counts one launch
+    each and the replays none (pipeline/compiled.py adds them)."""
+    runs = []
+    for shape in ("vith_global", "vith_window"):
+        ops = _sam_attn_operands(cuda, *SAM_ATTN_SHAPES[shape], seed=3)
+        runs.append((ops, SA.attention(*ops)))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = SA.LAUNCHES
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        outs = [SA.attention(*ops) for ops, _ in runs]
+    assert SA.LAUNCHES == before + 2
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert SA.LAUNCHES == before + 2
+    for out, (_, eager) in zip(outs, runs):
+        assert torch.equal(out, eager)
+
+
+def test_sam_attention_refuses_card_inputs_it_does_not_take(cuda):
+    ops = list(_sam_attn_operands(cuda, 2, 2, 4, 4, 16, seed=1))
+    with pytest.raises(ValueError, match="bfloat16"):
+        SA.attention(*[t.float() for t in ops[:5]], ops[5])
+    odd = _sam_attn_operands(cuda, 2, 2, 4, 4, 48, seed=1)
+    with pytest.raises(ValueError, match="head dim"):
+        SA.attention(*odd)
+    wide = _sam_attn_operands(cuda, 1, 1, 2, 72, 16, seed=1)
+    with pytest.raises(ValueError, match="do not fit"):
+        SA.attention(*wide)
+    with pytest.raises(ValueError, match="stride"):
+        SA.attention(ops[0].transpose(2, 3), *ops[1:])
+
+
+def test_sam_encoder_launches_the_attention_kernel_once_a_block(
+        cuda, monkeypatch):
+    """A bfloat16 encoder of the test config (4 blocks, two windowed, two
+    global) on the card: one launch a block, and no call of
+    F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from image_segmenter_tpu_torch.models import sam as S
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the encoder called SDPA")
+
+    monkeypatch.setattr(F, "scaled_dot_product_attention", refuse)
+    cfg = S.SamConfig(embed_dim=32, depth=4, num_heads=2,
+                      global_attn_indexes=(1, 3), window_size=4,
+                      patch_size=16, img_size=160, prompt_dim=32)
+    m = S.Sam(cfg, half=True).to(cuda)
+    S.seeded_init(m, torch.Generator(device=cuda).manual_seed(1))
+    before = SA.LAUNCHES
+    with torch.no_grad():
+        m.image_encoder(torch.randn(2, 3, 160, 160, device=cuda),
+                        torch.bfloat16)
+    assert SA.LAUNCHES - before == cfg.depth

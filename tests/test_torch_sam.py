@@ -330,3 +330,30 @@ def test_on_the_card_the_compiled_run_is_the_eager_run(tiny_registry):
     (prog,) = pipe.programs.values()
     assert prog._graphs[0].segment_attrs == (0, "sam_vit_h")
     assert prog._graphs[0].flag is None and prog.graphs() >= 5
+
+
+@pytest.mark.cuda
+def test_on_the_card_each_block_launches_the_attention_kernel_once(
+        tiny_registry, monkeypatch):
+    """The compiled run's replays carry kernels/sam_attention's launch
+    counter: a call adds one launch a block (4), as the eager run does,
+    and nothing calls F.scaled_dot_product_attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the attention kernel has no CPU "
+                    "mode")
+    import torch.nn.functional as F
+
+    from image_segmenter_tpu_torch.kernels import sam_attention as SA
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the encoder called SDPA")
+
+    monkeypatch.setattr(F, "scaled_dot_product_attention", refuse)
+    pipe = TS.Pipeline(model="sam_vit_h", k=8, matting_dim=64, cg_iters=30,
+                       device="cuda")
+    img, box = _inputs(b=3)
+    pipe.run(img, box)
+    for run in (pipe.run, pipe.run_eager):
+        before = SA.LAUNCHES
+        run(img, box)
+        assert SA.LAUNCHES - before == TINY["depth"]
