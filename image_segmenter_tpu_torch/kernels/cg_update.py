@@ -33,8 +33,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from image_segmenter_tpu_torch.kernels import _build
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # launches of the three kernels in this process
+# launches of the three kernels in this process
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 THREADS = 256  # a block of each kernel
 ITEMS = 4      # pixels a thread

@@ -30,6 +30,7 @@ import torch
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels.histogram import _scratch_for
 from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
 # variant -> elements a block folds before it widens (0: N3D, as many as
 # its counters hold)
@@ -45,7 +46,8 @@ PERIODS = {"N32": 1, "N64": 2, "N128": 4, "N256": 8, "N3D": 15}
 BLOCKS_PER_SM = 3    # 64 KB of counters a block: three fit an SM
 BLOCK_BYTES = THREADS * 16 * MAX_LOADS  # a block is worth one full period
 
-LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 VARIANT_LAUNCHES = {name: 0 for name in STEPS}
 
 _PLAIN_CHUNK = 1 << 20  # elements whose one-hots are live at once

@@ -28,8 +28,10 @@ import torch
 
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 _PLAIN_CHUNK = 1 << 16  # elements per compare-reduce step (bounds the one-hot)
 

@@ -42,8 +42,10 @@ from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels.matvec import run_bounds  # noqa: F401
 from image_segmenter_tpu_torch.kernels.precompute import _SHIFTS
 from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 NSTATIC = 10  # valid, img x3, f0..f5
 HALO = 2      # two stacked radius-1 window passes

@@ -48,9 +48,12 @@ from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels.precompute import NPLANES, _SHIFTS, \
     _box, _pad1, _sl, shifts
 from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # K3 launches in this process (read by chip_smoke.py)
-STACK_LAUNCHES = 0  # K5 launches in this process
+# K3 launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
+# K5 launches in this process
+STACK_LAUNCHES = replayed_counter(__name__, "STACK_LAUNCHES")
 
 NSTACK = 13   # planes of K5's operand stack
 HALO = 2      # member box needs windows at +-1, windows need p at +-1

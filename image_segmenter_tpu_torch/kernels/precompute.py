@@ -35,8 +35,10 @@ import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 NPLANES = 12
 _DELTA = 1e-5  # f32 scale-aware ridge

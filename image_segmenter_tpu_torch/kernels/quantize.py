@@ -38,8 +38,10 @@ import torch
 
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.utils.backend import targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 # float32(1/3): a product of two float32 values rounds the same whether the
 # scalar op runs in float32 or in double

@@ -32,8 +32,10 @@ import torch
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels.quantize import _THIRD
 from image_segmenter_tpu_torch.utils.backend import sm_count, targets_cuda
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py)
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 THREADS = 256        # a block of csrc/quantize_flat.cu (kThreads there)
 PIXELS = 16          # pixels a thread takes a step on the 16-byte path

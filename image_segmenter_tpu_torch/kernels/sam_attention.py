@@ -34,8 +34,10 @@ from __future__ import annotations
 import torch
 
 from image_segmenter_tpu_torch.kernels import _build
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter
 
-LAUNCHES = 0  # kernel launches in this process; a ViT block is one
+# kernel launches in this process; a ViT block is one
+LAUNCHES = replayed_counter(__name__, "LAUNCHES")
 
 # the kernel's instantiations: SAM's heads (ViT-B and ViT-L 64, ViT-H 80)
 # and the tests' small configuration (16). The kernel takes any multiple

@@ -53,10 +53,11 @@ import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import sam_attention as SA
 from image_segmenter_tpu_torch.ops import resize as RZ
-from image_segmenter_tpu_torch.utils.profiling import setup_span
+from image_segmenter_tpu_torch.utils.profiling import replayed_counter, \
+    setup_span
 
-FRAMES = 0
-PROMPTS = 0
+FRAMES = replayed_counter(__name__, "FRAMES")
+PROMPTS = replayed_counter(__name__, "PROMPTS")
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)

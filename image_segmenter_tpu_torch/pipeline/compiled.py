@@ -36,11 +36,23 @@ once, so one program's replay may overwrite another's freed blocks.
 All programs of a device capture on one stream, so the blocks one freed
 are reused by the next.
 
-The kernels' wrappers count their launches in Python, which a replay does
-not run. So the launches a capture counted are taken back and kept with
-its graph, and each replay adds them: `LAUNCHES` stays the count of
-kernels the card ran. models/sam.py's `FRAMES` and `PROMPTS` are
-counted the same way, and so is kernels/sam_attention.py's `LAUNCHES`.
+`ProgramCache` is where compiled programs are kept, the main path's
+(pipeline/segment.Pipeline, one cache a pipeline) and GrabCut's units
+(solvers/grabcut.py, one for the process). A call names a device, a
+shape and a program (a generator function of tensor arguments, nests of
+them as tuples, and static keyword arguments); the program is compiled
+at the first call with its argument structure, shapes, dtypes and static
+arguments and replayed after that. Programs are kept in groups, one a
+(shape, device), whose programs share one memory pool; the
+`PROGRAM_SHAPES` groups used last are kept, and the memory of a group
+dropped past them goes back to the device, so the memory compiled
+programs hold stays bounded however many shapes a process sees.
+
+Python counters (a kernel wrapper's `LAUNCHES`, models/sam.py's
+`FRAMES`) are not bumped by a replay, which runs no Python. So of every
+counter registered in utils/profiling.py (`replayed_counter`) what a
+capture counted is taken back and kept with its graph, and each replay
+adds it: `LAUNCHES` stays the count of kernels the card ran.
 
 Spans (utils/profiling.py): a call's copy in is `compiled.ingest`, each
 replay of straight code `compiled.segment` (attrs: the graph's index,
@@ -51,27 +63,19 @@ and a cut's label), each read of a loop's flag
 
 from __future__ import annotations
 
+import collections
+import gc
 import itertools
 
 import torch
 
-from image_segmenter_tpu_torch.kernels import cg_update as KCG
-from image_segmenter_tpu_torch.kernels import histogram as KH
-from image_segmenter_tpu_torch.kernels import matvec as KMV
-from image_segmenter_tpu_torch.kernels import precompute as KP
-from image_segmenter_tpu_torch.kernels import quantize as KQ
-from image_segmenter_tpu_torch.kernels import sam_attention as KSA
-from image_segmenter_tpu_torch.models import sam as SAM
-from image_segmenter_tpu_torch.utils.loops import Cut, warm_up
-from image_segmenter_tpu_torch.utils.profiling import setup_span, span
+from image_segmenter_tpu_torch.utils.loops import Cut, loop_attrs, \
+    run_chunks, warm_up
+from image_segmenter_tpu_torch.utils.profiling import replayed_counters, \
+    setup_span, span
 
-# the launch counters of the main path's kernels, K1-K4, and the CG's
-# update (kernels/cg_update.py); the frames and prompts of SAM's network
-# stage (models/sam.py) and its encoder's attention kernel
-# (kernels/sam_attention.py)
-COUNTERS = ((KH, "LAUNCHES"), (KP, "LAUNCHES"), (KMV, "LAUNCHES"),
-            (KQ, "LAUNCHES"), (KCG, "LAUNCHES"), (SAM, "FRAMES"),
-            (SAM, "PROMPTS"), (KSA, "LAUNCHES"))
+# the groups a ProgramCache keeps, those used last
+PROGRAM_SHAPES = 2
 
 # the capture stream of each device, shared by its programs
 _STREAMS: dict = {}
@@ -80,49 +84,45 @@ _SERIAL = itertools.count(1)
 
 
 def _counts() -> list:
-    return [getattr(mod, attr) for mod, attr in COUNTERS]
-
-
-def _add_counts(delta) -> None:
-    for (mod, attr), n in zip(COUNTERS, delta):
-        setattr(mod, attr, getattr(mod, attr) + n)
+    return [getattr(mod, attr) for mod, attr in replayed_counters()]
 
 
 class _Graph:
-    """One captured graph, its index in the program, the launches its
-    replay makes, and for a loop's step the flag that says whether to
-    replay it again, the loop's iteration counts, its class's name and
-    the attrs of its `loop.step` spans: (class, index), and the loop's
-    `update` path where it has one (solvers/matting.CGLoop). Straight
-    code's `compiled.segment` spans carry (index,), or (index, label)
-    for the code before a `Cut`."""
+    """One captured graph, what its replay adds to the registered
+    counters, and for a loop's step the flag that says whether to replay
+    it again, the loop's iteration counts and the attrs of its
+    `loop.step` spans (`utils.loops.loop_attrs`: class and `index`, the
+    graph's in the program). Straight code's `compiled.segment` spans
+    carry (index,), or (index, label) for the code before a `Cut`."""
 
-    __slots__ = ("graph", "index", "launches", "flag", "it", "loop",
-                 "step_attrs", "segment_attrs")
+    __slots__ = ("graph", "counts", "flag", "it", "step_attrs",
+                 "segment_attrs")
 
-    def __init__(self, graph, index, launches, loop=None, label=None):
-        self.graph, self.index, self.launches = graph, index, launches
+    def __init__(self, graph, index, counts, loop=None, label=None):
+        self.graph = graph
+        # (module, attribute, n) of each registered counter the capture
+        # moved, in the registry's order
+        self.counts = tuple((mod, attr, n) for (mod, attr), n
+                            in zip(replayed_counters(), counts) if n)
         self.segment_attrs = (index,) if label is None else (index, label)
-        self.flag, self.it, self.loop = (None, None, None) if loop is None \
-            else (loop.flag, loop.it, type(loop).__name__)
-        update = getattr(loop, "update", None)
-        self.step_attrs = (self.loop, index) + (
-            () if update is None else (update,))
+        self.flag, self.it = (None, None) if loop is None \
+            else (loop.flag, loop.it)
+        self.step_attrs = None if loop is None else loop_attrs(loop, index)
+
+    def add_counts(self, sign: int = 1) -> None:
+        for mod, attr, n in self.counts:
+            setattr(mod, attr, getattr(mod, attr) + sign * n)
+
+    def _step(self) -> None:
+        self.graph.replay()
+        self.add_counts()
 
     def replay(self) -> None:
         if self.flag is None:
             with span("compiled.segment", *self.segment_attrs):
-                self.graph.replay()
-            _add_counts(self.launches)
-            return
-        while True:
-            with span("loop.flag", self.loop):
-                go = bool(self.flag)  # one host read a chunk
-            if not go:
-                return
-            with span("loop.step", *self.step_attrs):
-                self.graph.replay()
-            _add_counts(self.launches)
+                self._step()
+        else:
+            run_chunks(self, self._step, self.step_attrs)
 
 
 class Compiled:
@@ -185,9 +185,9 @@ class Compiled:
                 label = fn()
             finally:
                 graph.capture_end()
-        launches = [a - b for a, b in zip(_counts(), before)]
-        _add_counts([-n for n in launches])  # a capture launches nothing
-        g = _Graph(graph, len(self._graphs), launches, loop, label)
+        g = _Graph(graph, len(self._graphs),
+                   [a - b for a, b in zip(_counts(), before)], loop, label)
+        g.add_counts(-1)  # a capture launches nothing
         self._graphs.append(g)
         g.replay()
 
@@ -219,3 +219,112 @@ class Compiled:
             if not isinstance(loop, Cut):
                 self._record(loop.step, loop)
         self._out = tuple(got["out"])
+
+
+_TENSOR = "tensor"
+
+
+def _flatten(x, leaves: list):
+    """The tensors of a nest of tuples (named ones too) and None, in
+    order, appended to `leaves`; returns the nest's structure."""
+    if torch.is_tensor(x):
+        leaves.append(x)
+        return _TENSOR
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return type(x), tuple(_flatten(c, leaves) for c in x)
+    raise TypeError(f"a program takes tensors, tuples and None, not {type(x)}")
+
+
+def _unflatten(spec, leaves):
+    """The nest of `spec` from an iterator of its tensors."""
+    if spec is _TENSOR:
+        return next(leaves)
+    if spec is None:
+        return None
+    typ, children = spec
+    values = [_unflatten(c, leaves) for c in children]
+    return tuple(values) if typ is tuple else typ(*values)
+
+
+def _release() -> None:
+    """Give the memory of dropped programs back to the device."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _Group(dict):
+    """The programs of one group, by (program, argument structure, shapes
+    and dtypes, static arguments), each with its output structure, and
+    the memory pool they share, made at the first capture."""
+
+    pool = None
+
+
+class ProgramCache:
+    """Compiled programs, kept in groups of a (shape, device), the
+    `PROGRAM_SHAPES` groups used last (the module docstring).
+
+    `groups`: the groups by (shape, device name), the one used last
+    last."""
+
+    def __init__(self):
+        self.groups: collections.OrderedDict = collections.OrderedDict()
+
+    def group(self, key) -> _Group:
+        """The group `key`, made the most recently used; the least
+        recently used groups past `PROGRAM_SHAPES` are dropped and their
+        pools released."""
+        group = self.groups.pop(key, None)
+        self.groups[key] = group = _Group() if group is None else group
+        if len(self.groups) > PROGRAM_SHAPES:  # one group over at most
+            self.groups.popitem(last=False)
+            _release()
+        return group
+
+    def programs(self) -> list:
+        """The programs kept, every group's."""
+        return [prog for group in self.groups.values()
+                for prog, _ in group.values()]
+
+    def clear(self) -> None:
+        """Drop every program and release their pools."""
+        self.groups.clear()
+        _release()
+
+    def __call__(self, device: torch.device, shape, program, *args,
+                 **static):
+        """`program(*args, **static)` on `device`, in the group of
+        (`shape`, device): captured at its first call (as a `Compiled`
+        in the group's pool) and replayed after that. The arguments are
+        copied into the program's static inputs, from wherever they
+        are; the outputs are clones, in the nest the program returned. A
+        capture or replay that fails raises, and a failed capture keeps
+        nothing."""
+        leaves = []
+        spec = _flatten(args, leaves)
+        group = self.group((shape, str(device)))
+        key = (program, spec, tuple((tuple(t.shape), t.dtype)
+                                    for t in leaves),
+               tuple(sorted(static.items())))
+        entry = group.get(key)
+        if entry is None:
+            out_spec = []
+
+            def flat(*xs):
+                out = yield from program(*_unflatten(spec, iter(xs)),
+                                         **static)
+                outs = []
+                out_spec.append(_flatten(out, outs))
+                return tuple(outs)
+
+            if group.pool is None:
+                group.pool = torch.cuda.graph_pool_handle()
+            prog = Compiled(flat, [(t.shape, t.dtype) for t in leaves],
+                            device, pool=group.pool)
+            outs = prog(*leaves)
+            group[key] = entry = (prog, out_spec[-1])
+        else:
+            outs = entry[0](*leaves)
+        return _unflatten(entry[1], iter(outs))

@@ -31,9 +31,10 @@ Compiled on the card, as the JAX package's `jax.jit`: `Pipeline.run` on a
 CUDA device captures the batch function once per input shape as CUDA
 graphs and replays them (pipeline/compiled.py), the matting CG and the
 Lloyd loop replayed a chunk at a time until their stop flag clears. The
-batch function is a program (`batch_program`) that yields each loop it
-reaches; the eager stage functions (`Pipeline.stages`, `run_eager`) drive
-the same programs op by op, which is how the CPU and the sharded run go.
+batch function is a program (`batch_program`: the network stage, then
+`refine_program`'s matting and quantize) that yields each loop it
+reaches; `run_eager`, `run_from_mask` and the sharded run drive the same
+programs op by op, which is also how the CPU goes.
 A prompted model's network stage ends in a `utils.loops.Cut`, so that it
 is a graph of its own, whose `compiled.segment` spans name the model.
 
@@ -65,7 +66,7 @@ from image_segmenter_tpu_torch.ops import morphology as M
 from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, \
     same_device, split_bounds, to_slot
-from image_segmenter_tpu_torch.pipeline.compiled import Compiled
+from image_segmenter_tpu_torch.pipeline.compiled import ProgramCache
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.solvers.matting import CGLoop
 from image_segmenter_tpu_torch.utils.backend import resolve_device, true_div
@@ -340,22 +341,35 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
                     quantize_program, session.model_id)
 
 
+def refine_program(stages: StageFns, imgs: torch.Tensor,
+                   mask: torch.Tensor):
+    """Matting then quantize from the network stage's mask, as one
+    program: (rgba, alpha, palettes)."""
+    sharp, alpha = yield from stages.matting_program(imgs, mask)
+    rgba, palettes = yield from stages.quantize_program(imgs, sharp)
+    return rgba, alpha, palettes
+
+
 def batch_program(stages: StageFns, module, imgs: torch.Tensor,
                   boxes: Optional[torch.Tensor] = None):
     """The whole batch function as one program: (rgba, alpha, palettes)
     of a (B, H, W, 3) u8 batch on the stages' device; with `boxes` (a
     prompted model's (B, 4) float32) also (logits, iou), the network
     stage cut into a graph of its own."""
-    extra = ()
     if boxes is None:
-        mask = stages.cnn(module, imgs)
+        mask, extra = stages.cnn(module, imgs), ()
     else:
-        mask, logits, iou = stages.cnn(module, imgs, boxes)
+        mask, *extra = stages.cnn(module, imgs, boxes)
         yield Cut(stages.model)
-        extra = (logits, iou)
-    sharp, alpha = yield from stages.matting_program(imgs, mask)
-    rgba, palettes = yield from stages.quantize_program(imgs, sharp)
-    return (rgba, alpha, palettes) + extra
+    out = yield from refine_program(stages, imgs, mask)
+    return out + tuple(extra)
+
+
+def _batch_program(imgs: torch.Tensor, boxes=None, *, stages: StageFns,
+                   module):
+    """`batch_program` with its tensors first, as `ProgramCache` calls a
+    program."""
+    return batch_program(stages, module, imgs, boxes)
 
 
 def network_on(module: torch.nn.Module, dev: torch.device,
@@ -372,9 +386,10 @@ def network_on(module: torch.nn.Module, dev: torch.device,
 
 def _as_batch(imgs_u8) -> torch.Tensor:
     x = torch.as_tensor(imgs_u8)
-    if x.dim() != 4 or x.shape[-1] != 3 or x.dtype != torch.uint8:
+    if x.dim() != 4 or x.shape[-1] != 3 or x.dtype != torch.uint8 \
+            or x.shape[0] == 0:
         raise ValueError("Pipeline.run takes a (B, H, W, 3) uint8 batch, "
-                         f"got {tuple(x.shape)} {x.dtype}")
+                         f"B >= 1, got {tuple(x.shape)} {x.dtype}")
     return x
 
 
@@ -408,9 +423,10 @@ class Pipeline:
     model refuses. device defaults to "cuda" and raises when CUDA is
     absent; it never falls back to the CPU. On a CUDA device `run` is
     compiled, as the JAX `Pipeline` is: the first call of each input
-    shape captures the batch function as CUDA graphs
-    (pipeline/compiled.py; model, B, H, W and device key the program;
-    the boxes are its second input), and every call replays them.
+    shape captures the batch function as CUDA graphs, and every call
+    replays them (pipeline/compiled.ProgramCache: a program a (B, H, W)
+    and device, those of the last `PROGRAM_SHAPES` kept; the boxes are
+    its second input).
     `run_eager` runs the same stages op by op, which is what `run` does
     on the CPU. With `sharding`
     (`batch_sharding(mesh)`; see the module docstring) the run lives on
@@ -442,14 +458,23 @@ class Pipeline:
                                          self.matting_dim, self.cg_iters,
                                          device=self.device)
             # per data group: its first slot and its stages, the solve
-            # split over the group's space slots
-            self._groups = [] if sharding is None else [
-                (g.first, make_stage_fns(self.session, self.k,
-                                         self.matting_dim, self.cg_iters,
-                                         device=g.first, solve_mesh=g))
-                for g in (mesh.group(i) for i in range(mesh.shape[0]))]
+            # split over the group's space slots; unsharded, one group
+            self._groups = [(self.device, self.stages)] if sharding is None \
+                else [(g.first, make_stage_fns(
+                    self.session, self.k, self.matting_dim, self.cg_iters,
+                    device=g.first, solve_mesh=g))
+                    for g in (mesh.group(i) for i in range(mesh.shape[0]))]
             self._copies = {}
-            self.programs = {}  # the compiled run's programs, by key
+            # the compiled run's programs, a (B, H, W) and device each
+            self._programs = ProgramCache()
+
+    @property
+    def programs(self) -> dict:
+        """The compiled run's programs kept, by ((B, H, W), device name),
+        the one the last call replayed last: at most
+        `compiled.PROGRAM_SHAPES`."""
+        return {key: prog for key, group in self._programs.groups.items()
+                for prog, _ in group.values()}
 
     def run(self, imgs_u8, boxes=None) -> PipelineOutput:
         with span("pipeline.run"):  # a call's root (utils/profiling.py)
@@ -457,18 +482,9 @@ class Pipeline:
             b = _as_boxes(boxes, self.session, x.shape[0])
             if self.sharding is not None or self.device.type != "cuda":
                 return self._run(x, None, b)
-            xs = (x,) if b is None else (x, b)
-            key = (self.session.model_id, *x.shape[:3], str(self.device))
-            prog = self.programs.get(key)
-            if prog is None:
-                stages, module = self.stages, self.session.module
-                prog = Compiled(
-                    lambda *ins: batch_program(stages, module, *ins),
-                    [(t.shape, t.dtype) for t in xs], self.device)
-                out = PipelineOutput(*prog(*xs))
-                self.programs[key] = prog  # kept once its capture succeeded
-                return out
-            return PipelineOutput(*prog(*xs))
+            return PipelineOutput(*self._programs(
+                self.device, tuple(x.shape[:3]), _batch_program, x, b,
+                stages=self.stages, module=self.session.module))
 
     def run_eager(self, imgs_u8, boxes=None) -> PipelineOutput:
         """`run` op by op through `stages`, never from a graph: the plain
@@ -484,28 +500,19 @@ class Pipeline:
         return self._run(_as_batch(imgs_u8), torch.as_tensor(mask_small))
 
     def _run(self, x: torch.Tensor, mask_small, boxes=None) -> PipelineOutput:
-        groups = [(self.device, self.stages, 0, x.shape[0])] \
-            if self.sharding is None else [
-                (dev, st, b0, b1) for (dev, st), (b0, b1) in zip(
-                    self._groups,
-                    split_bounds(x.shape[0], len(self._groups)))
-                if b1 > b0]  # groups past the batch's last image stay idle
         outs = []
-        for dev, st, b0, b1 in groups:
+        for (dev, st), (b0, b1) in zip(
+                self._groups, split_bounds(x.shape[0], len(self._groups))):
+            if b0 == b1:  # a group past the batch's last image stays idle
+                continue
             xi = to_slot(x[b0:b1], dev)
-            extra = ()
             if mask_small is not None:
-                mi = to_slot(mask_small[b0:b1], dev)
-            elif boxes is None:
-                mi = st.cnn(network_on(self.session.module, dev,
-                                       self._copies), xi)
+                prog = refine_program(st, xi, to_slot(mask_small[b0:b1], dev))
             else:
-                mi, *extra = st.cnn(network_on(self.session.module, dev,
-                                               self._copies), xi,
-                                    to_slot(boxes[b0:b1], dev))
-            sharp, alpha = st.matting(xi, mi)
-            rgba, palettes = st.quantize(xi, sharp)
-            outs.append((rgba, alpha, palettes, *extra))
+                prog = batch_program(
+                    st, network_on(self.session.module, dev, self._copies),
+                    xi, None if boxes is None else to_slot(boxes[b0:b1], dev))
+            outs.append(drive(prog))
         if len(outs) == 1:
             return PipelineOutput(*outs[0])
         return PipelineOutput(*(torch.cat([to_slot(o[i], self.device)

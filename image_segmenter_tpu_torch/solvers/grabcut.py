@@ -40,8 +40,8 @@ polish's round, from the split
 candidates to the accepted winner, is one program. On the card every
 unit is compiled once per shapes and static arguments and replayed from
 CUDA graphs, the units of one image shape in one memory pool, those of
-the last `PROGRAM_SHAPES` shapes kept (`_PROGRAMS`); on the CPU the same
-programs run eagerly.
+the last `compiled.PROGRAM_SHAPES` shapes kept (`_UNITS`); on the CPU
+the same programs run eagerly.
 
 Host reads. The alternations enqueue back to back (the JAX package's
 async dispatch), and one D2H read of the mask fences the EM chain. In a
@@ -57,9 +57,7 @@ k-means fits once per Lloyd iteration.
 
 from __future__ import annotations
 
-import collections
 import contextvars
-import gc
 import time
 from typing import NamedTuple, Optional
 
@@ -69,7 +67,7 @@ import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.ops import resize as RZ
-from image_segmenter_tpu_torch.pipeline.compiled import Compiled
+from image_segmenter_tpu_torch.pipeline.compiled import ProgramCache
 from image_segmenter_tpu_torch.solvers import kmeans as KM
 from image_segmenter_tpu_torch.utils.backend import resolve_device
 from image_segmenter_tpu_torch.utils.loops import Loop, drive
@@ -407,124 +405,41 @@ def _fg_of(m: torch.Tensor) -> torch.Tensor:
 # units: the programs the JAX package jits, compiled on the card
 # --------------------------------------------------------------------------
 
-# The units' compiled programs in groups, one an image shape and device:
-# a `grabcut_core` call's units (its coarse search's too) join the group
-# of its image, a unit called alone the group of its own image. A group's
-# programs share one memory pool. The `PROGRAM_SHAPES` groups used last
-# are kept, the least recently used one past them is dropped and its
-# pool released: the device memory the compiled units hold stays bounded
-# however many image shapes a process cuts.
-PROGRAM_SHAPES = 2
-_PROGRAMS: collections.OrderedDict = collections.OrderedDict()
+# The units' compiled programs (pipeline/compiled.ProgramCache), in
+# groups of an image shape and device: a `grabcut_core` call's units (its
+# coarse search's too) join the group of its image, a unit called alone
+# the group of its own image.
+_UNITS = ProgramCache()
 # the group of the running `grabcut_core` call: its image's (H, W)
 _SHAPE = contextvars.ContextVar("grabcut_shape", default=None)
 # true inside `_grabcut_core_eager`: the units run op by op on the card
 _EAGER = contextvars.ContextVar("grabcut_eager", default=False)
-_TENSOR = "tensor"
-
-
-class _Group(dict):
-    """The compiled units of one group, by (program, argument
-    structure, shapes and dtypes, static arguments), each with its
-    output structure, and the memory pool they share, made at the first
-    capture."""
-
-    pool = None
-
-
-def _group(key) -> _Group:
-    """The group `key`, made the most recently used; the least recently
-    used groups past `PROGRAM_SHAPES` are dropped and their pools
-    released."""
-    group = _PROGRAMS.pop(key, None)
-    _PROGRAMS[key] = group = _Group() if group is None else group
-    if len(_PROGRAMS) > PROGRAM_SHAPES:
-        while len(_PROGRAMS) > PROGRAM_SHAPES:
-            _PROGRAMS.popitem(last=False)
-        _release()
-    return group
-
-
-def _release() -> None:
-    """Give the memory of dropped programs back to the device."""
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def programs() -> list:
     """The compiled units kept, every group's."""
-    return [prog for group in _PROGRAMS.values()
-            for prog, _ in group.values()]
-
-
-def _flatten(x, leaves: list):
-    """The tensors of a nest of tuples (GMM, Image) and None, in order,
-    appended to `leaves`; returns the nest's structure."""
-    if torch.is_tensor(x):
-        leaves.append(x)
-        return _TENSOR
-    if x is None:
-        return None
-    if isinstance(x, tuple):
-        return type(x), tuple(_flatten(c, leaves) for c in x)
-    raise TypeError(f"a unit takes tensors, tuples and None, not {type(x)}")
-
-
-def _unflatten(spec, leaves):
-    """The nest of `spec` from an iterator of its tensors."""
-    if spec is _TENSOR:
-        return next(leaves)
-    if spec is None:
-        return None
-    typ, children = spec
-    values = [_unflatten(c, leaves) for c in children]
-    return tuple(values) if typ is tuple else typ(*values)
+    return _UNITS.programs()
 
 
 def _run(program, *args, **static):
     """A unit: `program(*args, **static)`, a generator function of tensor
-    arguments (nests of them, as GMM and Image) and static Python ones.
+    arguments (nests of them, as GMM and Image; an Image first) and
+    static Python ones.
 
     On the CPU, and on the card under `_grabcut_core_eager`, it runs
     eagerly (`drive`). On the card it is compiled once per argument
-    shapes and static arguments (pipeline/compiled.Compiled, in the pool
-    of its group) and replayed after that: the arguments are copied into
-    the program's static inputs, the outputs returned as clones. A
-    capture or replay that fails raises."""
-    leaves = []
-    spec = _flatten(args, leaves)
-    dev = leaves[0].device
+    shapes and static arguments, in the group of its image, and replayed
+    after that (`_UNITS`)."""
+    dev = args[0].img.device
     if dev.type != "cuda" or _EAGER.get():
         return drive(program(*args, **static))
     shape = _SHAPE.get() or tuple(args[0].img.shape[:2])
-    group = _group((shape, str(dev)))
-    key = (program, spec, tuple((tuple(t.shape), t.dtype) for t in leaves),
-           tuple(sorted(static.items())))
-    entry = group.get(key)
-    if entry is None:
-        out_spec = []
-
-        def flat(*xs):
-            out = yield from program(*_unflatten(spec, iter(xs)), **static)
-            outs = []
-            out_spec.append(_flatten(out, outs))
-            return tuple(outs)
-
-        if group.pool is None:
-            group.pool = torch.cuda.graph_pool_handle()
-        prog = Compiled(flat, [(t.shape, t.dtype) for t in leaves], dev,
-                        pool=group.pool)
-        outs = prog(*leaves)
-        group[key] = entry = (prog, out_spec[-1])
-        return _unflatten(entry[1], iter(outs))
-    prog, out = entry
-    return _unflatten(out, iter(prog(*leaves)))
+    return _UNITS(dev, shape, program, *args, **static)
 
 
 def clear_programs() -> None:
     """Drop every compiled unit and release their pools."""
-    _PROGRAMS.clear()
-    _release()
+    _UNITS.clear()
 
 
 def _init_program(im: Image, init_mask: torch.Tensor, seed: int = 42):
@@ -878,8 +793,8 @@ def grabcut_core(img_bgr, init_mask, iterations: Optional[int] = None,
     On the card the units (init, one alternation, the energy, a polish
     round) run compiled, each captured as CUDA graphs at its first call
     with new shapes and replayed after that (`_run`); the units of the
-    last `PROGRAM_SHAPES` image shapes are kept. On the CPU they run
-    eagerly. Both give the same bytes.
+    last `compiled.PROGRAM_SHAPES` image shapes are kept. On the CPU
+    they run eagerly. Both give the same bytes.
     """
     token = _SHAPE.set(tuple(int(n) for n in img_bgr.shape[:2]))
     try:

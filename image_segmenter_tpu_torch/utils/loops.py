@@ -9,8 +9,8 @@ yields each loop it reaches, an object with
 - `flag`: a 0-dim bool tensor on the device, whether any lane is still
   active;
 - `it`: the iterations each lane has run;
-- `run()`: the eager loop, `step()` until the flag clears (`Loop.run`)
-  or an equivalent that reads the host more often;
+- `run()`: the eager loop, `step()` until the flag clears (`Loop.run`,
+  `run_chunks`) or an equivalent that reads the host more often;
 
 and returns its outputs. A program may also yield a `Cut`, where its
 straight code is to end a graph (pipeline/compiled.Compiled); run
@@ -25,22 +25,39 @@ from __future__ import annotations
 from image_segmenter_tpu_torch.utils.profiling import span
 
 
+def loop_attrs(loop, index=None) -> tuple:
+    """The attrs of a loop's `loop.step` spans (utils/profiling.py):
+    (class,) stepped eagerly, (class, graph index) replayed from a graph;
+    a loop with an `update` path (solvers/matting.CGLoop) adds it, after
+    None when eager."""
+    name = type(loop).__name__
+    update = getattr(loop, "update", None)
+    if update is not None:
+        return name, index, update
+    return (name,) if index is None else (name, index)
+
+
+def run_chunks(owner, step, attrs: tuple) -> None:
+    """Call `step()` until `owner.flag` clears, one host read a chunk:
+    each read a `loop.flag` span (attrs: the loop's class, `attrs[0]`),
+    each chunk a `loop.step` span with `attrs`. `Loop.run` steps a loop
+    eagerly with it, and pipeline/compiled.py replays a loop's graph with
+    it."""
+    while True:
+        with span("loop.flag", attrs[0]):
+            go = bool(owner.flag)
+        if not go:
+            return
+        with span("loop.step", *attrs):
+            step()
+
+
 class Loop:
     """The eager `run` of a loop with `step` and `flag`."""
 
     def run(self) -> None:
-        """Step until no lane is active: one host read a chunk (the spans
-        `loop.flag` and `loop.step`, utils/profiling.py)."""
-        name = type(self).__name__
-        update = getattr(self, "update", None)
-        step = (name,) if update is None else (name, None, update)
-        while True:
-            with span("loop.flag", name):
-                go = bool(self.flag)
-            if not go:
-                return
-            with span("loop.step", *step):
-                self.step()
+        """Step until no lane is active (`run_chunks`)."""
+        run_chunks(self, self.step, loop_attrs(self))
 
 
 class Cut:

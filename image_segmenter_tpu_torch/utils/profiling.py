@@ -53,9 +53,13 @@ The spans of the program, by name:
   time Python runs them: at a program's warm-up and capture on the card,
   at every eager call.
 
-Counters: besides each call's counters above, the program counts the
-frames and box prompts of SAM's network stage (`models.sam.FRAMES`,
-`PROMPTS`, added at each replay like the kernels' `LAUNCHES`).
+Counters: besides each call's counters above, the kernels' wrappers
+count their launches (`LAUNCHES`, kernels/*.py) and SAM's network stage
+its frames and box prompts (`models.sam.FRAMES`, `PROMPTS`), each a
+module-level int bumped in Python. A graph's replay runs no Python, so
+each such counter is declared through `replayed_counter`, which
+registers it, and pipeline/compiled.py takes back what a capture
+counted of every registered counter and adds it at each replay.
 
 A program is numbered in the order programs were made, so a call's
 `compiled.ingest` names the `compiled.capture` of the program it
@@ -254,6 +258,30 @@ def clear() -> None:
     for c in _ring:
         c.id, c.n, c.top, c.done = 0, 0, -1, False
     _setup.clear()
+
+
+# the counters a graph's replay adds to: (module, attribute name)
+_REPLAYED: list = []
+
+
+def replayed_counter(module: str, attr: str) -> int:
+    """Register the module-level int `attr` of the module named `module`
+    (its `__name__`) as a counter of work done in Python, and return its
+    start, 0: a module declares such a counter as `LAUNCHES =
+    replayed_counter(__name__, "LAUNCHES")`. pipeline/compiled.Compiled
+    adds at each replay of a graph what the graph's capture added to
+    it."""
+    entry = (sys.modules[module], attr)
+    if entry not in _REPLAYED:
+        _REPLAYED.append(entry)
+    return 0
+
+
+def replayed_counters() -> tuple:
+    """The registered counters, (module, attribute name), in the order
+    they were registered."""
+    return tuple(_REPLAYED)
+
 
 def mp_per_sec(num_pixels: int, seconds: float) -> float:
     return num_pixels / 1e6 / max(seconds, 1e-12)

@@ -700,7 +700,7 @@ def test_compiled_grabcut_is_the_eager_grabcut(cuda, hw):
     GC.clear_programs()
     first = solve(GC.grabcut_core)  # warm-up and captures
     # one group, the image's: the coarse search's units join it
-    assert [shape for shape, _ in GC._PROGRAMS] == [(h, w)]
+    assert [shape for shape, _ in GC._UNITS.groups] == [(h, w)]
     second = solve(GC.grabcut_core)
     eager = solve(GC._grabcut_core_eager)
     third = solve(GC.grabcut_core)
@@ -715,6 +715,7 @@ def test_compiled_grabcut_memory_is_bounded(cuda):
     `PROGRAM_SHAPES` shapes: the groups stay at that count and the device
     memory reserved after each later shape stays within a quarter of that
     after the second, over what was reserved before the first."""
+    from image_segmenter_tpu_torch.pipeline.compiled import PROGRAM_SHAPES
     from image_segmenter_tpu_torch.solvers import grabcut as GC
     from image_segmenter_tpu_torch.utils.seeds import config4_rect, \
         portrait_scene
@@ -731,10 +732,47 @@ def test_compiled_grabcut_memory_is_bounded(cuda):
         mask[y:y + rh, x:x + rw] = GC.PR_FGD
         GC.grabcut_core(img, mask, iterations=3, device="cuda")
         torch.cuda.synchronize()
-        assert len(GC._PROGRAMS) == min(len(reserved) + 1, GC.PROGRAM_SHAPES)
+        assert len(GC._UNITS.groups) == min(len(reserved) + 1,
+                                            PROGRAM_SHAPES)
         reserved.append(torch.cuda.memory_reserved() - base)
     assert max(reserved[2:]) <= 1.25 * reserved[1], reserved
     GC.clear_programs()
+
+
+def test_compiled_pipeline_memory_is_bounded(cuda):
+    """`Pipeline.run` on three frame shapes of as many pixels keeps the
+    programs of the last `PROGRAM_SHAPES`: the programs stay at that
+    count, the last call's program last (a shape run again too, with no
+    new capture), and the device memory reserved after the third shape
+    stays within a quarter of that after the second, over what was
+    reserved before the first."""
+    import gc
+
+    from image_segmenter_tpu_torch.pipeline import segment as SEG
+    from image_segmenter_tpu_torch.pipeline.compiled import PROGRAM_SHAPES
+
+    pipe = SEG.Pipeline(model="u2netp", k=16, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    reserved, frames = [], []
+    for i, (h, w) in enumerate(((240, 320), (320, 240), (256, 300))):
+        frames.append(torch.from_numpy(_photo_like(2, h, w, i)).to(cuda))
+        pipe.run(frames[-1])
+        torch.cuda.synchronize()
+        assert len(pipe.programs) == min(i + 1, PROGRAM_SHAPES)
+        assert list(pipe.programs)[-1] == ((2, h, w), str(pipe.device))
+        reserved.append(torch.cuda.memory_reserved() - base)
+    assert reserved[2] <= 1.25 * reserved[1], reserved
+    kept = pipe.programs
+    out = pipe.run(frames[1])
+    assert list(pipe.programs) == [((2, 256, 300), str(pipe.device)),
+                                   ((2, 320, 240), str(pipe.device))]
+    assert list(pipe.programs.values())[-1] is kept[((2, 320, 240),
+                                                     str(pipe.device))]
+    for a, b in zip(out, pipe.run_eager(frames[1])):
+        assert torch.equal(a, b)
 
 
 def test_prng_key_words_in_a_captured_graph(cuda):

@@ -31,7 +31,6 @@ loop's `run`. Tolerances:
   contract holds (known pixels pass through, values in {0, 1, 2, 3}).
 """
 
-import collections
 import dataclasses
 
 import jax.numpy as jnp
@@ -71,7 +70,7 @@ def _replayed(program):
 
 def _leaves(x) -> list:
     out = []
-    TG._flatten(x, out)
+    CP._flatten(x, out)
     return out
 
 
@@ -496,7 +495,7 @@ def test_units_on_the_cpu_are_the_eager_programs(state):
                  LP.drive(TG._iter_program(im, m, fg, bg, y)))
     _assert_same(TG.mask_energy(im, TG._fg_of(m)),
                  LP.drive(TG._energy_program(im, TG._fg_of(m))))
-    assert not TG._PROGRAMS
+    assert not TG.programs()
 
 
 def test_flatten_round_trip(state):
@@ -505,9 +504,9 @@ def test_flatten_round_trip(state):
     im, _, m, fg, bg, y = state
     args = (im, m, fg, bg, None, y)
     leaves = []
-    spec = TG._flatten(args, leaves)
+    spec = CP._flatten(args, leaves)
     assert len(leaves) == 3 + 1 + 5 + 5 + 1
-    back = TG._unflatten(spec, iter(leaves))
+    back = CP._unflatten(spec, iter(leaves))
     assert isinstance(back[0], TG.Image) and isinstance(back[2], TG.GMM)
     assert back[4] is None
     _assert_same(back, args)
@@ -538,47 +537,6 @@ def test_warm_up_steps_each_loop_once():
     assert LP.drive(program()) == (5, 3)
     with pytest.raises(ValueError):
         CP.Compiled(program, [((2,), torch.float32)], torch.device("cpu"))
-
-
-SHAPES = [((96, 128), "cuda:0"), ((128, 96), "cuda:0"), ((64, 192), "cuda:0"),
-          ((192, 64), "cuda:0"), ((96, 128), "cuda:1")]
-
-
-@pytest.mark.parametrize("kept", [1, 2, 3])
-def test_program_groups_keep_the_last_shapes(kept, monkeypatch):
-    """The compiled units are kept in groups, one an image shape and
-    device: after five shapes the last `PROGRAM_SHAPES` groups are left,
-    each with its programs, and every group dropped released its memory
-    (the release is stubbed here: there is no card)."""
-    released = []
-    monkeypatch.setattr(TG, "_release", lambda: released.append(1))
-    monkeypatch.setattr(TG, "_PROGRAMS", collections.OrderedDict())
-    monkeypatch.setattr(TG, "PROGRAM_SHAPES", kept)
-    for i, key in enumerate(SHAPES):
-        TG._group(key)["unit"] = (f"program {i}", None)
-        assert len(TG._PROGRAMS) == min(i + 1, kept)
-    assert list(TG._PROGRAMS) == SHAPES[-kept:]
-    assert TG.programs() == [f"program {i}" for i in range(5 - kept, 5)]
-    assert len(released) == 5 - kept
-
-
-def test_program_group_used_again_is_kept(monkeypatch):
-    """A group used again becomes the most recent: a new shape drops
-    the group used least recently, not the one made first; and
-    `clear_programs` drops every group."""
-    released = []
-    monkeypatch.setattr(TG, "_release", lambda: released.append(1))
-    monkeypatch.setattr(TG, "_PROGRAMS", collections.OrderedDict())
-    monkeypatch.setattr(TG, "PROGRAM_SHAPES", 2)
-    first = TG._group(SHAPES[0])
-    first["unit"] = ("program 0", None)
-    TG._group(SHAPES[1])
-    assert TG._group(SHAPES[0]) is first and not released
-    TG._group(SHAPES[2])
-    assert list(TG._PROGRAMS) == [SHAPES[0], SHAPES[2]]
-    assert TG._group(SHAPES[0]) is first and released == [1]
-    TG.clear_programs()
-    assert not TG._PROGRAMS and released == [1, 1]
 
 
 def test_prng_key_words_are_made_once():

@@ -269,7 +269,7 @@ def test_the_network_stage_counts_frames_and_prompts_and_is_cut(
     loops = []
     out = drive(prog, loops)
     assert len(out) == 5 and all(not isinstance(lp, Cut) for lp in loops)
-    assert (TCOMP.SAM, "FRAMES") in TCOMP.COUNTERS
+    assert (S, "FRAMES") in P.replayed_counters()
 
 
 def test_a_cut_labels_its_graphs_segment_spans():
@@ -277,9 +277,9 @@ def test_a_cut_labels_its_graphs_segment_spans():
         def replay(self):
             pass
 
-    seg = TCOMP._Graph(_Graph(), 0, [0] * len(TCOMP.COUNTERS),
-                       label="sam_vit_h")
-    plain = TCOMP._Graph(_Graph(), 1, [0] * len(TCOMP.COUNTERS))
+    zeros = [0] * len(P.replayed_counters())
+    seg = TCOMP._Graph(_Graph(), 0, zeros, label="sam_vit_h")
+    plain = TCOMP._Graph(_Graph(), 1, zeros)
 
     def call():
         with P.span("pipeline.run"):

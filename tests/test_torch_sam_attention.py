@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import sam_attention as SA
 from image_segmenter_tpu_torch.models import sam as S
-from image_segmenter_tpu_torch.pipeline import compiled as TCOMP
+from image_segmenter_tpu_torch.utils.profiling import replayed_counters
 
 torch.set_num_threads(2)
 
@@ -191,4 +191,4 @@ def test_the_bf16_block_calls_the_kernel_once_and_no_sdpa(monkeypatch):
                             torch.bfloat16 if half else torch.float32)
         assert calls == ([(9, 2, 16, 16), (1, 2, 100, 16)] * 2
                          if half else [])
-    assert (SA, "LAUNCHES") in TCOMP.COUNTERS
+    assert (SA, "LAUNCHES") in replayed_counters()

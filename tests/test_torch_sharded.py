@@ -226,6 +226,17 @@ def test_sharded_pipeline_distinct_images_and_repeat():
     assert pipe.device == CPU and out.rgba.device == CPU
 
 
+@pytest.mark.parametrize("sharded", [False, True])
+def test_an_empty_batch_is_refused(sharded):
+    """A batch of no image is refused before any work, on one slot (one
+    data group) and sharded alike."""
+    kw = dict(sharding=TM.batch_sharding(_mesh((2, 1)))) if sharded \
+        else dict(device="cpu")
+    pipe = Pipeline(model="u2netp", k=4, cg_iters=20, **kw)
+    with pytest.raises(ValueError, match="B >= 1"):
+        pipe.run(np.zeros((0, 32, 32, 3), np.uint8))
+
+
 def test_split_stage_meshes_sizes():
     meshes = split_stage_meshes([CPU] * 8, fractions=(2, 1, 1))
     assert [m.size for m in meshes] == [4, 2, 2]

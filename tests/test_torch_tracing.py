@@ -251,9 +251,9 @@ def test_loop_steps_carry_the_update_path(update):
     fused ones; `graph_replays` and `chunks` count as without the path."""
     loop = _FakeLoop()
     loop.update = update
-    seg = TCOMP._Graph(_FakeGraph(), 0, [0] * len(TCOMP.COUNTERS))
-    step = TCOMP._Graph(_FakeGraph(loop, 3), 1, [0] * len(TCOMP.COUNTERS),
-                        loop)
+    zeros = [0] * len(P.replayed_counters())
+    seg = TCOMP._Graph(_FakeGraph(), 0, zeros)
+    step = TCOMP._Graph(_FakeGraph(loop, 3), 1, zeros, loop)
 
     def call():
         with P.span("pipeline.run"):
