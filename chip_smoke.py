@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
 2. build: compiles the CUDA kernels from kernels/csrc with nvcc (K1-K8,
-   the matting CG's update and SAM's encoder attention);
+   the matting CG's update, SAM's encoder attention and the resize);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at ragged shapes, with warm timings, its bound
    (the least time the card could take: bytes over the memory rate or
@@ -45,7 +45,14 @@ Phases, each raising (and exiting non-zero) on failure:
    q, k, v, the output and the tables once at the memory's) and beside
    the library path it replaced (the bias as a bf16 mask and
    F.scaled_dot_product_attention), each output within 2^-7 of its row's
-   probability-weighted |v| and of its own size;
+   probability-weighted |v| and of its own size. The resize
+   (kernels/resample.py, no TPU kernel: XLA's dot does the JAX package's)
+   at the 4K main path's eight resizes (U2-Netp's five, ISNet's two
+   Lanczos, SAM's BILINEAR_PIL) against the dense float64 contraction,
+   byte for byte, timed one launch, back to back and from a CUDA graph
+   beside its bound (the nonzero taps' float64 multiply-adds at the
+   float64 rate, or the u8 in and out at the memory's) and beside the
+   dense path's time;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, compiled (captured as CUDA graphs at its first call,
    replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
@@ -244,12 +251,14 @@ from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
+from image_segmenter_tpu_torch.kernels import resample as KRS
 from image_segmenter_tpu_torch.kernels import sam_attention as KSA
 from image_segmenter_tpu_torch.models import onnx_writer as ONNX_WRITER
 from image_segmenter_tpu_torch.models import registry as REG
 from image_segmenter_tpu_torch.models.u2net import U2NET
 from image_segmenter_tpu_torch.ops import connected_components as CCOMP
 from image_segmenter_tpu_torch.ops import native as NATIVE
+from image_segmenter_tpu_torch.ops import resize as RZ
 from image_segmenter_tpu_torch.ops.color import pack_rgb_u32 as PACK
 from image_segmenter_tpu_torch.parallel import mesh as PM
 from image_segmenter_tpu_torch.pipeline import segment as SEG
@@ -314,11 +323,13 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
                   + _TPU + "pallas_matvec.py:271)"),
     "sam_attention": (KSA, "LAUNCHES", _CSRC + "sam_attention.cu",
                       "none (the JAX package has no SAM)"),
+    "resample": (KRS, "LAUNCHES", _CSRC + "resample.cu",
+                 "none (XLA's dot runs the JAX package's resizes)"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
 # the main path on one card: also the CG's update, which a solve split
-# over slots (phase 15) leaves to CGLoop._body
-SLICE_PATH = MAIN_PATH + ("cg_update",)
+# over slots (phase 15) leaves to CGLoop._body, and the resizes
+SLICE_PATH = MAIN_PATH + ("cg_update", "resample")
 # sha256 (first 16 hex digits) of Pipeline.run's outputs on phase 4's batch,
 # unchanged since the kernels' redesigns kept every bit
 # (bench/micro_precompute_hist.py cuda pipeline prints the same)
@@ -1175,6 +1186,89 @@ def check_sam_attention(label: str, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the resizes of a 4 x 2160 x 3840 batch: (name, source, destination,
+# method, channels); U2-Netp's five, ISNet's Lanczos to and from 1024 x
+# 1024, SAM's BILINEAR_PIL to 576 x 1024
+RESAMPLES = (("cnn_in", (H4K, W4K), (320, 320), "lanczos_pil", 3),
+             ("mask_up", (320, 320), (H4K, W4K), "lanczos_pil", 1),
+             ("rgb_shrink", (H4K, W4K), (MH, MW), "area", 3),
+             ("alpha_shrink", (H4K, W4K), (MH, MW), "area", 1),
+             ("alpha_up", (MH, MW), (H4K, W4K), "linear", 1),
+             ("isnet_in", (H4K, W4K), (1024, 1024), "lanczos_pil", 3),
+             ("isnet_up", (1024, 1024), (H4K, W4K), "lanczos_pil", 1),
+             ("sam_in", (H4K, W4K), (MH, MW), "bilinear_pil", 3))
+CELL1_RESAMPLES = ("cnn_in", "mask_up", "rgb_shrink", "alpha_shrink",
+                   "alpha_up")
+F64_OPS = 34e12  # float64 outside the tensor cores, one H100 SXM
+
+
+def resample_bound(b, src, dst, method, c) -> dict:
+    """The least time of a resize: its u8 read and written once at the
+    memory rate, or a multiply and an add for each nonzero tap of the two
+    passes (rows over every source column, columns over every output
+    row) at the float64 rate, whichever is larger."""
+    (h, w), (dh, dw) = src, dst
+    nz_y = int((RZ._weights(h, dh, method) != 0).sum())
+    nz_x = int((RZ._weights(w, dw, method) != 0).sum())
+    ops = 2.0 * b * c * (w * nz_y + dh * nz_x)
+    nbytes = float(b * c * (h * w + dh * dw))
+    t_ops, t_bytes = ops / F64_OPS * 1e3, nbytes / HBM_BPS * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def check_resample(label: str, dev) -> dict:
+    """The resize kernel against the dense float64 contraction at the 4K
+    path's eight resizes, byte for byte, timed one launch, back to back
+    and from a CUDA graph beside its bound and the dense path's time."""
+    photos = torch.from_numpy(photo_batch(BATCH, H4K, W4K, seed=0)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(25)
+    rec = {}
+    for name, src, dst, method, c in RESAMPLES:
+        if src == (H4K, W4K):
+            x = photos if c == 3 else photos[..., 1].contiguous()
+        else:
+            x = torch.randint(0, 256, (BATCH, *src, c)[:4 if c > 1 else 3],
+                              generator=g, device=dev, dtype=torch.uint8)
+        fn = lambda: RZ.resize_u8(x, dst, method)  # noqa: E731
+        plain = lambda: RZ.resize_u8_plain(x, dst, method)  # noqa: E731
+        n0 = KRS.LAUNCHES
+        got = fn()
+        if KRS.LAUNCHES != n0 + 1:
+            fail(f"resample {name}: {KRS.LAUNCHES - n0} launches, not 1")
+        diff = int((got != plain()).sum())
+        if diff:
+            fail(f"resample {name}: {diff} bytes differ from the dense "
+                 f"contraction")
+        ms = median_ms(fn)
+        b2b = median_ms(fn, inner=BACK_TO_BACK)
+        graph = BENCH_K12.graph_ms(fn, BACK_TO_BACK, REPS)
+        plain_ms = median_ms(plain, reps=3)
+        bd = resample_bound(BATCH, src, dst, method, c)
+        rec[name] = {"max_abs_err": 0.0, "ms": ms, "ms_back_to_back": b2b,
+                     "ms_graph": graph, "plain_ms": plain_ms, **bd}
+        print(f"[kernels] resample {name} {method} ({BATCH}, {src[0]}, "
+              f"{src[1]}, {c}) -> {dst}: the dense bytes; {ms:.4f} ms one "
+              f"launch, {b2b:.4f} back to back, {graph:.4f} from a CUDA "
+              f"graph, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({bd['bound_ms'] / graph:.3f} of it); dense {plain_ms:.3f} "
+              f"ms ({label})")
+        del x, got
+    total = {k: sum(rec[n][k] for n in CELL1_RESAMPLES)
+             for k in ("ms", "ms_back_to_back", "ms_graph", "plain_ms",
+                       "bound_ms")}
+    print(f"[kernels] resample, U2-Netp's five resizes of a 4K batch: "
+          f"{total['ms_graph']:.4f} ms from a CUDA graph against "
+          f"{total['bound_ms']:.4f} ms bound "
+          f"({total['bound_ms'] / total['ms_graph']:.3f} of it), dense "
+          f"{total['plain_ms']:.3f} ms ({label})")
+    torch.cuda.empty_cache()
+    by = sorted({rec[n]["bound_by"] for n in CELL1_RESAMPLES})
+    return {"max_abs_err": 0.0, **total, "bound_by": " and ".join(by),
+            "library_ms": None, "shapes": rec}
+
+
+# ---------------------------------------------------------------------------
 # phase 4 and 5: the slice
 # ---------------------------------------------------------------------------
 
@@ -1259,11 +1353,13 @@ def run_slice(label: str):
     # one histogram for the trimap's two quantiles and one for Otsu; one
     # precompute and one palette map a batch; K3 once for the first
     # residual and CG_CHUNK times in each chunk the loop replayed; the CG's
-    # update three times for each of those K3 launches
+    # update three times for each of those K3 launches; one resize each
+    # for the CNN's input and its mask, the matting's two shrinks and its
+    # alpha back
     chunks = -(-int(cg_it.max()) // MAT.CG_CHUNK)
     want = {"histogram": 2, "precompute": 1,
             "matvec": 1 + MAT.CG_CHUNK * chunks, "quantize": 1,
-            "cg_update": 3 * MAT.CG_CHUNK * chunks}
+            "cg_update": 3 * MAT.CG_CHUNK * chunks, "resample": 5}
     if launches != want:
         fail(f"the main path's launches a run are {launches}, not {want}")
 
@@ -1401,6 +1497,10 @@ def run_sam_slice(label: str) -> dict:
         fail(f"the SAM path launched the attention kernel "
              f"{launches['sam_attention']} times a call, not {depth} (one "
              f"a block)")
+    # the encoder's input, the matting's two shrinks and its alpha back
+    if launches["resample"] != 4:
+        fail(f"the SAM path launched the resize kernel "
+             f"{launches['resample']} times a call, not 4")
     for name in SLICE_PATH:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the SAM path")
@@ -3310,6 +3410,7 @@ def main() -> None:
         "hist_variants": check_hist_variants(label, dev),
         "cg_update": check_cg_update(label, dev),
         "sam_attention": check_sam_attention(label, dev),
+        "resample": check_resample(label, dev),
     }
     launches, frame = run_slice(label)
     launches["sam_attention"] = run_sam_slice(label)["sam_attention"]

@@ -84,6 +84,11 @@ SIGNATURES = {
                            _I64, _I64, _I64, _P, _I64, _I64, _I64, _I64, _P,
                            _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
                            _I32, _F32, _P, _P],
+    # (x u8 (B, H, W, C), B, H, W, C, ys int32 (dh,), wy f64 (dh, ky), dh,
+    #  ky, xs int32 (dw,), wx f64 (dw, kx), dw, kx, tile rows, tile
+    #  columns, span, out u8 (B, dh, C, dw), stream)
+    "iseg_resample_u8": [_P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32, _P,
+                         _P, _I32, _I32, _I32, _I32, _I32, _P, _P],
 }
 
 _lib = None

@@ -1,17 +1,22 @@
 """Image resize with cv2/PIL-compatible sampling conventions.
 
-Counterpart of image_segmenter_tpu/ops/resize.py. A resize is two dense
+Counterpart of image_segmenter_tpu/ops/resize.py. A resize is two
 contractions, out = W_y @ img @ W_x^T, with host-built (dst, src) float32
-weight matrices; `torch.matmul` runs them, as the JAX package leaves them
-to XLA.
+weight matrices, as the JAX package leaves them to XLA's dot. On the CPU
+they are dense `torch.matmul`s (`resize`, and `resize_u8_plain`); on the
+card `resize_u8` is one launch of a hand-written kernel
+(kernels/resample) that sums only each output's band of nonzero taps
+(`_band`), rows then columns, and never holds a float64 plane in device
+memory.
 
 The contractions accumulate in float64 and the result is rounded to
 float32 once. A float32 product's rounding depends on the order in which
 the BLAS library sums, which differs between the CPU and the card; the
-float64 sum of float32 terms rounds to the same float32 on both (up to a
-tie at float64 precision), so a u8 resize gives the same bytes on every
-device. Against the JAX package's float32 contraction the two differ at
-float32 rounding, as any two summation orders do.
+float64 sum of float32 terms rounds to the same float32 in any order (up
+to a tie at float64 precision), so a u8 resize gives the same bytes on
+every device, the banded kernel's order included. Against the JAX
+package's float32 contraction the two differ at float32 rounding, as any
+two summation orders do.
 
 The port's functions take a leading batch axis: (B, H, W) or (B, H, W, C).
 """
@@ -22,6 +27,9 @@ import functools
 
 import numpy as np
 import torch
+
+from image_segmenter_tpu_torch.kernels import resample as RS
+from image_segmenter_tpu_torch.utils.backend import targets_cuda
 
 AREA = "area"          # cv2 INTER_AREA (exact for downscale)
 LINEAR = "linear"      # cv2 INTER_LINEAR (half-pixel centers)
@@ -118,6 +126,31 @@ def _weights_on(src: int, dst: int, method: str,
         device=device, dtype=torch.float64)
 
 
+@functools.lru_cache(maxsize=None)
+def _band(src: int, dst: int, method: str) -> tuple:
+    """`_weights` as the kernel's band: (start int32 (dst,), taps float32
+    (dst, K)), which reconstruct it exactly."""
+    return RS.band(_weights(src, dst, method))
+
+
+@functools.lru_cache(maxsize=None)
+def _band_on(src: int, dst: int, method: str,
+             device: torch.device) -> RS.Band:
+    """The band on `device`, its taps held as float64. Made at a shape's
+    first call, so before a CUDA graph captures the resize."""
+    start, taps = _band(src, dst, method)
+    return RS.Band(torch.from_numpy(start).to(device),
+                   torch.from_numpy(taps).to(device, torch.float64))
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles(w: int, dw: int, dh: int, method: str, c: int) -> tuple:
+    """The kernel's tile for a resize of width w -> dw to dh rows of c
+    channels (kernels/resample.tile), worked out on the host."""
+    start, taps = _band(w, dw, method)
+    return RS.tile(start, taps.shape[1], dh, c)
+
+
 def resize(img: torch.Tensor, dst_hw: tuple, method: str = LINEAR) -> torch.Tensor:
     """Resize a (B, H, W) or (B, H, W, C) batch to dst_hw = (H', W').
 
@@ -141,7 +174,29 @@ def resize(img: torch.Tensor, dst_hw: tuple, method: str = LINEAR) -> torch.Tens
 
 
 def resize_u8(img: torch.Tensor, dst_hw: tuple, method: str = LINEAR) -> torch.Tensor:
-    """uint8 resize with cv2-style round-half-up output conversion."""
+    """uint8 resize with cv2-style round-half-up output conversion. On the
+    card one launch of the banded kernel (kernels/resample), which takes
+    uint8 only; on the CPU its plain version, `resize_u8_plain`."""
+    if not targets_cuda(img):
+        return resize_u8_plain(img, dst_hw, method)
+    if img.dtype != torch.uint8 or img.dim() not in (3, 4):
+        raise ValueError("resize_u8 takes a (B, H, W[, C]) uint8 tensor on "
+                         f"the card; got {tuple(img.shape)} {img.dtype}")
+    b, h, w = img.shape[:3]
+    dh, dw = int(dst_hw[0]), int(dst_hw[1])
+    if (h, w) == (dh, dw):
+        return img.clone()  # in img's layout, as `resize_u8_plain`
+    c = img.shape[3] if img.dim() == 4 else 1
+    dev = img.device
+    return RS.resample_u8(img.contiguous(), _band_on(h, dh, method, dev),
+                          _band_on(w, dw, method, dev),
+                          _tiles(w, dw, dh, method, c))
+
+
+def resize_u8_plain(img: torch.Tensor, dst_hw: tuple,
+                    method: str = LINEAR) -> torch.Tensor:
+    """`resize_u8` as the dense float64 contractions of `resize`, on any
+    device: the kernel's plain version."""
     x = resize(img, dst_hw, method)
     return torch.clamp(torch.floor(x + 0.5), 0, 255).to(torch.uint8)
 

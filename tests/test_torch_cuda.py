@@ -17,6 +17,7 @@ from image_segmenter_tpu_torch.kernels import matvec as KMV
 from image_segmenter_tpu_torch.kernels import precompute as KP
 from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
+from image_segmenter_tpu_torch.kernels import resample as RS
 from image_segmenter_tpu_torch.kernels import sam_attention as SA
 
 pytestmark = pytest.mark.cuda
@@ -1260,3 +1261,103 @@ def test_sam_encoder_launches_the_attention_kernel_once_a_block(
         m.image_encoder(torch.randn(2, 3, 160, 160, device=cuda),
                         torch.bfloat16)
     assert SA.LAUNCHES - before == cfg.depth
+
+
+# ---------------------------------------------------------------------------
+# RS: resizes as one banded kernel (kernels/resample, csrc/resample.cu)
+# ---------------------------------------------------------------------------
+
+RESIZE_METHODS = ("area", "linear", "lanczos_pil", "bilinear_pil",
+                  "nearest_cv", "nearest_pil")
+# (src, dst): the 4K main path's (the CNN's 320 input and its mask back,
+# the matting's 576 x 1024 shrink and its alpha back; SAM's BILINEAR_PIL
+# to 576 x 1024 is the shrink's shape), ISNet's 1024 and 1080p's
+RESAMPLE_SHAPES = [((2160, 3840), (320, 320)), ((320, 320), (2160, 3840)),
+                   ((2160, 3840), (576, 1024)), ((576, 1024), (2160, 3840)),
+                   ((2160, 3840), (1024, 1024)),
+                   ((1024, 1024), (2160, 3840)),
+                   ((1080, 1920), (320, 320)), ((320, 320), (1080, 1920)),
+                   ((1080, 1920), (576, 1024)), ((576, 1024), (1080, 1920))]
+
+
+def _u8(g, shape, dev):
+    return torch.randint(0, 256, shape, generator=g, device=dev,
+                         dtype=torch.uint8)
+
+
+def _layout(t):
+    """The strides of the dimensions longer than 1: a dimension of one
+    element has no layout of its own."""
+    return [st for st, n in zip(t.stride(), t.shape) if n > 1]
+
+
+@pytest.mark.parametrize("src,dst", RESAMPLE_SHAPES)
+@pytest.mark.parametrize("method", RESIZE_METHODS)
+def test_resample_kernel_is_the_dense_bytes(cuda, method, src, dst):
+    """One launch a resize, byte for byte the dense float64 contraction
+    (`resize_u8_plain`, cuBLAS on the card) and in its layout (what a
+    reduction after it sums in follows the layout), batch 1 and 4, one
+    channel and three."""
+    from image_segmenter_tpu_torch.ops import resize as RZ
+
+    g = _gen(cuda, 5)
+    for b in (1, 4):
+        for shape in ((b, *src), (b, *src, 3)):
+            x = _u8(g, shape, cuda)
+            before = RS.LAUNCHES
+            got = RZ.resize_u8(x, dst, method)
+            assert RS.LAUNCHES == before + 1
+            ref = RZ.resize_u8_plain(x, dst, method)
+            assert got.shape == ref.shape and _layout(got) == _layout(ref)
+            assert torch.equal(got, ref), (shape, int((got != ref).sum()))
+
+
+@pytest.mark.parametrize("method", RESIZE_METHODS)
+def test_resample_kernel_odd_shapes(cuda, method):
+    """One-pixel and odd sizes, a view of three channels of four, four
+    channels, one output column that reads a whole row: the dense bytes
+    and layout. The same size is a copy, with no launch."""
+    from image_segmenter_tpu_torch.ops import resize as RZ
+
+    g = _gen(cuda, 6)
+    rgba = _u8(g, (2, 61, 97, 4), cuda)
+    cases = [(_u8(g, (1, 1, 1), cuda), (7, 5)),
+             (_u8(g, (2, 97, 61), cuda), (1, 1)),
+             (_u8(g, (3, 23, 37, 3), cuda), (61, 97)),
+             (rgba[..., :3], (23, 37)), (rgba, (40, 130)),
+             (_u8(g, (1, 5, 3000, 3), cuda), (2, 1))]
+    for x, dst in cases:
+        got = RZ.resize_u8(x, dst, method)
+        ref = RZ.resize_u8_plain(x, dst, method)
+        assert torch.equal(got, ref) and _layout(got) == _layout(ref), \
+            (tuple(x.shape), dst)
+    before = RS.LAUNCHES
+    for x in (rgba, rgba[..., :3]):
+        same = RZ.resize_u8(x, (61, 97), method)
+        ref = RZ.resize_u8_plain(x, (61, 97), method)
+        assert RS.LAUNCHES == before and torch.equal(same, x)
+        assert _layout(same) == _layout(ref)
+
+
+@pytest.mark.parametrize("model", ["u2netp", "isnet-general-use"])
+def test_pipeline_launches_the_resample_kernel_once_a_resize(cuda, model):
+    """A replayed `Pipeline.run` carries kernels/resample's counter: five
+    launches a call (the CNN's input and its mask back, the matting's two
+    shrinks and its alpha back), as the eager run; no float64 GEMM runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_segmenter_tpu_torch.pipeline import segment as SEG
+
+    pipe = SEG.Pipeline(model=model, k=16, matting_dim=128, device="cuda")
+    x = torch.from_numpy(_photo_like(2, 240, 320, 0)).to(cuda)
+    pipe.run(x)  # warm-up and capture
+    for run in (pipe.run, pipe.run_eager):
+        before = RS.LAUNCHES
+        run(x)
+        assert RS.LAUNCHES - before == 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe.run(x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("resample" in n for n in names)
+    assert not any("gemm_f64" in n or "f64f64" in n for n in names)

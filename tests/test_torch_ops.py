@@ -14,6 +14,7 @@ import torch
 from image_segmenter_tpu.ops import histogram as JHG
 from image_segmenter_tpu.ops import morphology as JM
 from image_segmenter_tpu.ops import resize as JRZ
+from image_segmenter_tpu_torch.kernels import resample as RS
 from image_segmenter_tpu_torch.ops import histogram as THG
 from image_segmenter_tpu_torch.ops import morphology as TM
 from image_segmenter_tpu_torch.ops import resize as TRZ
@@ -83,6 +84,146 @@ def test_weight_builders_copied_unchanged():
                                           JRZ._weights(src, dst, method))
     assert TRZ.scale_to_max_dim(2160, 3840, 1024) == \
         JRZ.scale_to_max_dim(2160, 3840, 1024)
+
+
+METHODS = (TRZ.AREA, TRZ.LINEAR, TRZ.LANCZOS_PIL, TRZ.BILINEAR_PIL,
+           TRZ.NEAREST_CV, TRZ.NEAREST_PIL)
+# (src, dst) of one axis: the 4K main path's (U2-Netp's 320, the matting's
+# 576 x 1024, ISNet's 1024, SAM's 1024 long side), 1080p's, GrabCut's
+# search shrink of 1024 x 768, odd and one-pixel sizes
+BAND_PAIRS = [(2160, 320), (3840, 320), (320, 2160), (320, 3840),
+              (2160, 576), (3840, 1024), (576, 2160), (1024, 3840),
+              (2160, 1024), (1024, 2160), (1080, 320), (1920, 320),
+              (320, 1080), (320, 1920), (1080, 576), (1920, 1024),
+              (576, 1080), (1024, 1920), (1024, 256), (768, 192), (1, 1),
+              (1, 7), (7, 1), (61, 23), (23, 61), (97, 1), (2, 3), (3, 2),
+              (5, 5), (1000, 999)]
+
+
+@pytest.mark.parametrize("src,dst", BAND_PAIRS)
+@pytest.mark.parametrize("method", METHODS)
+def test_band_reconstructs_the_weights(method, src, dst):
+    """The kernel's band (kernels/resample.band) holds every nonzero of
+    `_weights` and gives the matrix back exactly; its windows stay inside
+    the source and never move left, and the band is no wider than the
+    widest row's nonzeros."""
+    w = TRZ._weights.__wrapped__(src, dst, method)  # uncached: large ones
+    start, taps = RS.band(w)
+    k = taps.shape[1]
+    assert start.dtype == np.int32 and taps.dtype == np.float32
+    assert taps.shape == (dst, k) and 1 <= k <= src
+    assert (start >= 0).all() and (start + k <= src).all()
+    assert (np.diff(start) >= 0).all()
+    back = np.zeros_like(w)
+    np.put_along_axis(back, start[:, None] + np.arange(k), taps, axis=1)
+    np.testing.assert_array_equal(back, w)
+    nz = [np.flatnonzero(r) for r in w]
+    assert k == max([1] + [r[-1] - r[0] + 1 for r in nz if len(r)])
+
+
+def _banded_u8(img: np.ndarray, dst_hw, method: str) -> np.ndarray:
+    """csrc/resample.cu's arithmetic in numpy: float32 taps times u8
+    values summed in float64 in ascending source index, rows (each
+    product exact, so the kernel's fma rounds as this sum does) then
+    columns (a product and a sum, each rounded), one rounding to float32,
+    floor(x + 0.5) in float32, clamped to 0..255."""
+    b, h, w = img.shape[:3]
+    x = img.reshape(b, h, w, -1).astype(np.float64)
+    ys, wy = TRZ._band(h, dst_hw[0], method)
+    xs, wx = TRZ._band(w, dst_hw[1], method)
+    rows = np.zeros((b, dst_hw[0], w, x.shape[3]))
+    for k in range(wy.shape[1]):
+        rows = rows + wy[None, :, k, None, None].astype(np.float64) \
+            * x[:, ys + k]
+    acc = np.zeros((b, dst_hw[0], dst_hw[1], x.shape[3]))
+    for k in range(wx.shape[1]):
+        acc = acc + wx[None, None, :, k, None].astype(np.float64) \
+            * rows[:, :, xs + k]
+    y = np.floor(acc.astype(np.float32) + np.float32(0.5))
+    return np.clip(y, 0, 255).astype(np.uint8).reshape(
+        b, *dst_hw, *img.shape[3:])
+
+
+def _photo_pair():
+    """(2, 256, 512, 3) u8: corpus photos two side by side."""
+    from image_segmenter_tpu_torch.bench.corpus import load_corpus
+
+    tiles = [rgb for _, rgb in load_corpus(256, 4)]
+    return np.stack([np.concatenate(tiles[0:2], axis=1),
+                     np.concatenate(tiles[2:4], axis=1)])
+
+
+# (src, dst): a shrink by 4.2 and 5.3 (the CNN input's), one by 3.8 and
+# 4.3 (the matting's), and an enlargement back
+TWIN_CASES = [((256, 512), (61, 97)), ((256, 512), (68, 120)),
+              ((61, 97), (256, 512))]
+
+
+@pytest.mark.parametrize("src,dst", TWIN_CASES)
+@pytest.mark.parametrize("kind", ["photo", "random"])
+@pytest.mark.parametrize("method", METHODS)
+def test_banded_sum_gives_the_dense_bytes(method, kind, src, dst):
+    """The kernel's banded float64 sum, as `_banded_u8` writes it, gives
+    `resize_u8`'s dense bytes on corpus photos and random u8, three
+    channels and one."""
+    rng = np.random.default_rng(11)
+    if kind == "photo":
+        img = _photo_pair()
+        if img.shape[1:3] != src:
+            img = TRZ.resize_u8(torch.from_numpy(img), src, method).numpy()
+    else:
+        img = rng.integers(0, 256, (2, *src, 3), dtype=np.uint8)
+    for x in (img, np.ascontiguousarray(img[..., 1])):
+        got = _banded_u8(x, dst, method)
+        ref = TRZ.resize_u8(torch.from_numpy(x), dst, method).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("method", [TRZ.LANCZOS_PIL, TRZ.AREA, TRZ.LINEAR])
+@pytest.mark.parametrize("w,dw,dh,c", [(3840, 320, 320, 3),
+                                       (320, 3840, 2160, 1),
+                                       (3840, 1024, 576, 3),
+                                       (1024, 3840, 2160, 1),
+                                       (3840, 1024, 1024, 3),
+                                       (97, 1, 5, 3), (7, 61, 23, 1),
+                                       (30000, 1, 3, 4)])
+def test_resample_tile_fits_its_windows(method, w, dw, dh, c):
+    """`tile`'s span is the most source columns any of its column tiles
+    reads; the tile's float64 row sums (PAD bytes of alignment included)
+    fit a block's shared memory, TILE_BYTES unless one column alone does
+    not; at most MAX_ROWS rows, MAX_COLUMNS columns and, past a GROUP of
+    rows, MAX_OUTPUTS."""
+    start, taps = TRZ._band(w, dw, method)
+    k = taps.shape[1]
+    if (RS.span(start, k, 1) * c + RS.PAD) * 8 > RS.MAX_TILE_BYTES:
+        with pytest.raises(ValueError):  # a column of 30,000 x 4 sums
+            RS.tile(start, k, dh, c)
+        return
+    ty, tx, sp = RS.tile(start, k, dh, c)
+    reads = [start[min(o + tx, dw) - 1] + k - start[o]
+             for o in range(0, dw, tx)]
+    assert sp == max(reads) <= w
+    assert 1 <= ty <= min(dh, RS.MAX_ROWS) and 1 <= tx <= min(
+        dw, RS.MAX_COLUMNS)
+    limit = RS.TILE_BYTES if tx > 1 or ty > 1 else RS.MAX_TILE_BYTES
+    assert ty * (sp * c + RS.PAD) * 8 <= limit
+    assert ty <= RS.GROUP or ty * tx * c <= RS.MAX_OUTPUTS
+
+
+def test_resample_constants_are_the_kernels():
+    """GROUP is csrc/resample.cu's kRows, PAD covers the bytes its
+    kVec-byte loads add at either end of a row of sums, and
+    MAX_TILE_BYTES is the shared memory it allows a block."""
+    import re
+    from image_segmenter_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "resample.cu").read_text()
+    assert int(re.search(r"constexpr int kRows = (\d+);", src).group(1)) \
+        == RS.GROUP
+    vec = int(re.search(r"constexpr int kVec = (\d+);", src).group(1))
+    assert RS.PAD == 2 * (vec - 1)
+    assert int(re.search(r"constexpr size_t kMaxSmem = (\d+);", src)
+               .group(1)) == RS.MAX_TILE_BYTES
 
 
 @pytest.mark.parametrize("shape", [(3, 1000), (2, 37, 53), (1, 300000)])

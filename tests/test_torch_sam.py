@@ -333,6 +333,27 @@ def test_on_the_card_the_compiled_run_is_the_eager_run(tiny_registry):
 
 
 @pytest.mark.cuda
+def test_on_the_card_each_resize_launches_the_resample_kernel_once(
+        tiny_registry):
+    """A replayed SAM run carries kernels/resample's counter: four launches
+    a call (the encoder's BILINEAR_PIL input, the matting's two AREA
+    shrinks and its LINEAR alpha back), as the eager run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the resample kernel has no CPU "
+                    "mode")
+    from image_segmenter_tpu_torch.kernels import resample as RS
+
+    pipe = TS.Pipeline(model="sam_vit_h", k=8, matting_dim=64, cg_iters=30,
+                       device="cuda")
+    img, box = _inputs(b=3)
+    pipe.run(img, box)
+    for run in (pipe.run, pipe.run_eager):
+        before = RS.LAUNCHES
+        run(img, box)
+        assert RS.LAUNCHES - before == 4
+
+
+@pytest.mark.cuda
 def test_on_the_card_each_block_launches_the_attention_kernel_once(
         tiny_registry, monkeypatch):
     """The compiled run's replays carry kernels/sam_attention's launch
