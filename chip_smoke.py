@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
 2. build: compiles the CUDA kernels from kernels/csrc with nvcc (K1-K8,
-   the matting CG's update, SAM's encoder attention and the resize);
+   the matting CG's update, SAM's encoder attention, the resize and
+   BiRefNet's deformable convolution);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at ragged shapes, with warm timings, its bound
    (the least time the card could take: bytes over the memory rate or
@@ -52,7 +53,13 @@ Phases, each raising (and exiting non-zero) on failure:
    byte for byte, timed one launch, back to back and from a CUDA graph
    beside its bound (the nonzero taps' float64 multiply-adds at the
    float64 rate, or the u8 in and out at the memory's) and beside the
-   dense path's time;
+   dense path's time. BiRefNet's deformable convolution
+   (kernels/deform_conv.py, no TPU kernel: the JAX package has no
+   BiRefNet) at its twelve published shapes (k 1, 3, 7 at 32 to 256
+   square, batch 4) against its plain version, also into a channel slice
+   of the branches' concatenation, timed one launch, back to back and
+   from a CUDA graph beside its bound (the products at the bf16 rate, or
+   its operands and output once at the memory's);
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, compiled (captured as CUDA graphs at its first call,
    replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
@@ -68,6 +75,11 @@ Phases, each raising (and exiting non-zero) on failure:
    launches of a replayed call (SAM's attention one a block, 32; K1-K4
    and the CG's update from the stages after the network), output
    checks, the eager run's bytes, a bit-identical second replay, the wall;
+   then Pipeline(model="birefnet-general", k=16).run on the same batch:
+   20 deformable launches and 4 frames a replayed call, the same checks,
+   and that replayed call's network logits against
+   benchmark/reference/birefnet_plain.py in float32 (`logit_rel`, with
+   the float8 control beside it, which must fail the limit);
 5. card against CPU: the same pipeline and weights on a 720 x 1280 image
    on the card and on the CPU (plain path), end to end, and the matting
    and quantize stages from the same CNN mask on both;
@@ -244,6 +256,7 @@ from image_segmenter_tpu_torch.compat import tendril_trimming as TENDRILS
 from image_segmenter_tpu_torch.config import DEFAULTS
 from image_segmenter_tpu_torch.kernels import _build
 from image_segmenter_tpu_torch.kernels import cg_update as KCG
+from image_segmenter_tpu_torch.kernels import deform_conv as KDC
 from image_segmenter_tpu_torch.kernels import hist_variants as K8
 from image_segmenter_tpu_torch.kernels import histogram as KH
 from image_segmenter_tpu_torch.kernels import matting as K6
@@ -325,6 +338,8 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
                       "none (the JAX package has no SAM)"),
     "resample": (KRS, "LAUNCHES", _CSRC + "resample.cu",
                  "none (XLA's dot runs the JAX package's resizes)"),
+    "deform_conv": (KDC, "LAUNCHES", _CSRC + "deform_conv.cu",
+                    "none (the JAX package has no BiRefNet)"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
 # the main path on one card: also the CG's update, which a solve split
@@ -1269,6 +1284,130 @@ def check_resample(label: str, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# BiRefNet's deformable convolutions: (H, W) of the decoder's scales at
+# 1024 x 1024 (the squeeze block and decoder block 4 share 32 x 32) and
+# the branches' kernels, batch 4
+DEFORM_SIZES = (32, 64, 128, 256)
+DEFORM_KERNELS = (1, 3, 7)
+
+
+def deform_operands(dev, b, h, w, k, seed):
+    """x (B, 64, H, W) bfloat16 channels-last; offsets N(0, 2^2) pixels,
+    one tap in 16 thrown 2 to 6 sizes away (outside the image); the
+    modulator uniform in (0, 2); the folded weight (256, k, k, 64)
+    bfloat16 and bias, as models/birefnet.py hands them over."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn(b, 64, h, w, generator=g, device=dev).to(
+        torch.bfloat16, memory_format=cl)
+    off = 2.0 * torch.randn(b, 2 * k * k, h, w, generator=g, device=dev)
+    far = torch.rand(b, 2 * k * k, h, w, generator=g, device=dev) < 1 / 16
+    off = torch.where(far, off.sign() * (2 + 4 * torch.rand(
+        off.shape, generator=g, device=dev)) * max(h, w), off)
+    mask = 2.0 * torch.rand(b, k * k, h, w, generator=g, device=dev)
+    wt = (torch.randn(256, k, k, 64, generator=g, device=dev)
+          / (8.0 * k)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(256, generator=g, device=dev)
+    return (x, off.contiguous(memory_format=cl),
+            mask.contiguous(memory_format=cl), wt, bias)
+
+
+def deform_tolerance(ref: torch.Tensor) -> torch.Tensor:
+    """How far the kernel may lie from its plain version: both make the
+    same bfloat16 operand of samples and sum its products with the
+    weight in float32 in other orders (within 2^-12 of the largest
+    output here), and each rounds its result to bfloat16 (the two within
+    one unit in the last place, 2^-8 of |ref|, and 2^-7 allows a rounding
+    on either side)."""
+    r = ref.float().abs()
+    return 2 ** -7 * r + 2 ** -12 * float(r.max())
+
+
+def check_deform_conv(label: str, dev) -> dict:
+    """The kernel against its plain version at every published shape of
+    BiRefNet's decoder (k 1, 3, 7 at 32, 64, 128 and 256 square, batch 4;
+    a ReLU and a bias as the folded branches use them, and a launch into
+    a channel slice of a wider tensor, as the branches write their
+    concatenation), timed one launch, back to back and from a CUDA graph
+    beside its bound (yardstick/birefnet_flops: the products at the bf16
+    rate, or the input, offsets, modulators, weight and output once at
+    the memory's)."""
+    from benchmark.yardstick import birefnet_flops as BRF
+
+    rec = {}
+    for hw in DEFORM_SIZES:
+        for k in DEFORM_KERNELS:
+            name = f"{hw}x{hw}_k{k}"
+            ops = deform_operands(dev, BATCH, hw, hw, k, seed=hw + k)
+            x, off, mask, wt, bias = ops
+            n0 = KDC.LAUNCHES
+            got = KDC.deform_conv(x, off, mask, wt, bias, relu=True)
+            if KDC.LAUNCHES != n0 + 1:
+                fail(f"deform_conv {name}: {KDC.LAUNCHES - n0} launches")
+            ref = KDC.deform_conv_plain(x, off, mask, wt, bias, relu=True,
+                                        rows=16)
+            diff = (got.float() - ref.float()).abs()
+            worst = float((diff / deform_tolerance(ref)).max())
+            err = float(diff.max())
+            if worst > 1.0 or not bool(torch.isfinite(got).all()):
+                fail(f"deform_conv {name}: {err} from the plain version, "
+                     f"{worst:.3f} of the tolerance")
+            # into a channel slice of a (B, 1280, H, W) concatenation
+            cat = torch.zeros((BATCH, 1280, hw, hw), dtype=torch.bfloat16,
+                              device=dev).to(memory_format=torch.channels_last)
+            KDC.deform_conv(x, off, mask, wt, bias, relu=True,
+                            out=cat[:, 512:768])
+            if not (torch.equal(cat[:, 512:768], got)
+                    and not bool(cat[:, :512].any())
+                    and not bool(cat[:, 768:].any())):
+                fail(f"deform_conv {name}: the launch into a channel slice "
+                     f"differs from the plain launch or writes outside it")
+            del ref, diff, cat
+            fn = lambda: KDC.deform_conv(x, off, mask, wt, bias,  # noqa: E731
+                                         relu=True)
+            ms = median_ms(fn)
+            b2b = median_ms(fn, inner=BACK_TO_BACK)
+            graph = BENCH_K12.graph_ms(fn, BACK_TO_BACK, REPS)
+            plain_ms = median_ms(lambda: KDC.deform_conv_plain(
+                x, off, mask, wt, bias, relu=True, rows=16), reps=2)
+            fl = BRF.deform_flops(BATCH, hw, hw, k)
+            nb = BRF.deform_bytes(BATCH, hw, hw, k)
+            t_ops, t_bytes = fl / BF16_OPS * 1e3, nb / HBM_BPS * 1e3
+            bd = {"bound_ms": max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            rec[name] = {"max_abs_err": err, "err_over_tol": worst,
+                         "ms": ms, "ms_back_to_back": b2b,
+                         "ms_graph": graph, "plain_ms": plain_ms,
+                         "tflops_graph": fl / graph / 1e9, **bd}
+            print(f"[kernels] deform_conv ({BATCH}, 64, {hw}, {hw}) k {k} "
+                  f"-> 256: {err:.5f} from plain, at most {worst:.3f} of "
+                  f"the tolerance; {ms:.4f} ms one launch, {b2b:.4f} back "
+                  f"to back, {graph:.4f} from a CUDA graph "
+                  f"({fl / graph / 1e9:.1f} TFLOP/s), bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"({bd['bound_ms'] / graph:.3f} of it); plain "
+                  f"{plain_ms:.3f} ms ({label})")
+            del x, off, mask, wt, bias, got
+    torch.cuda.empty_cache()
+    # a call's 20 launches: the squeeze block and decoder block 4 at 32,
+    # blocks 3, 2, 1 at 64, 128, 256; each k 1 twice, 3 and 7
+    per = {hw: [rec[f"{hw}x{hw}_k{k}"] for k in (1, 1, 3, 7)]
+           for hw in DEFORM_SIZES}
+    call = [r for hw in (32, 32, 64, 128, 256) for r in per[hw]]
+    total = {key: sum(r[key] for r in call)
+             for key in ("ms", "ms_back_to_back", "ms_graph", "plain_ms",
+                         "bound_ms")}
+    print(f"[kernels] deform_conv, a BiRefNet call's 20 launches (batch 4 "
+          f"at 1024 x 1024): {total['ms_graph']:.4f} ms from a CUDA graph "
+          f"against {total['bound_ms']:.4f} ms bound "
+          f"({total['bound_ms'] / total['ms_graph']:.3f} of it), plain "
+          f"{total['plain_ms']:.3f} ms ({label})")
+    return {"max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+            **total, "bound_by": "operations and bytes", "library_ms": None,
+            "shapes": rec}
+
+
+# ---------------------------------------------------------------------------
 # phase 4 and 5: the slice
 # ---------------------------------------------------------------------------
 
@@ -1529,6 +1668,111 @@ def run_sam_slice(label: str) -> dict:
           f"{BATCH * H4K * W4K / 1e6 / wall:.3f} MP/s device-resident "
           f"({label})")
     del pipe, out, keep
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the largest worst-frame ||logits - ref|| / ||ref|| of BiRefNet's bfloat16
+# network against its float32 reference at published widths, set between
+# the two readings on the H100: the program 0.0031, the float8 control
+# 0.045-0.048 (about 4x room on each side)
+BIREFNET_LOGIT_REL = 0.012
+
+
+def run_birefnet_slice(label: str) -> dict:
+    """Phase 4, BiRefNet: Pipeline(model="birefnet-general", k=16).run on
+    phase 4's batch, the BiRefNet cell's path. The first call captures the
+    program; the launches of one replayed call are counted after
+    zero_counts(), as for the CNN: the deformable kernel 20 times (five
+    blocks of four branches), the resize 5. The network's input and
+    logits in that replayed call are the captured graph's own tensors,
+    kept by a forward hook on the session's module at capture; they are
+    held against reference/birefnet_plain.py in float32 on the card,
+    frame by frame, as `logit_rel`, with the float8 control beside it.
+    Returns the launches."""
+    from benchmark.reference import birefnet_plain as BP
+    from image_segmenter_tpu_torch.models import birefnet as BRN
+
+    x = torch.from_numpy(photo_batch(BATCH, H4K, W4K, seed=0)).to("cuda")
+    pipe = Pipeline(model="birefnet-general", k=16, device="cuda")
+    module = pipe.session.module
+    captured = {}
+
+    def keep(mod, args, result):
+        # a tensor held from the capture keeps its block of the graph's
+        # pool, which each replay writes
+        if torch.cuda.is_current_stream_capturing():
+            captured["x"], captured["logits"] = args[0], result[0]
+
+    hook = module.register_forward_hook(keep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(x)  # warm-up and capture
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    hook.remove()
+    if set(captured) != {"x", "logits"}:
+        fail("the BiRefNet network stage was not captured")
+
+    zero_counts()
+    frames0 = BRN.FRAMES
+    out = pipe.run(x)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # the replayed call's network input and logits
+    xin = captured["x"].float().clone()
+    logits = captured["logits"].float().clone()
+    print(f"[birefnet] first call (warm-up and capture): {t_capture:.3f} s; "
+          f"kernel launches in one Pipeline.run (from the replays): "
+          f"{launches}; frames {BRN.FRAMES - frames0} ({label})")
+    if launches["deform_conv"] != 20:
+        fail(f"the BiRefNet path launched the deformable kernel "
+             f"{launches['deform_conv']} times a call, not 20")
+    if launches["resample"] != 5:
+        fail(f"the BiRefNet path launched the resize kernel "
+             f"{launches['resample']} times a call, not 5")
+    for name in SLICE_PATH:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the BiRefNet path")
+    if BRN.FRAMES - frames0 != BATCH:
+        fail(f"a replay counted {BRN.FRAMES - frames0} frames, not {BATCH}")
+    check_output(out, 16, BATCH, H4K, W4K)
+    keep = [t.clone() for t in out]
+    if not all(torch.equal(a, b) for a, b in zip(keep, pipe.run(x))):
+        fail("a second BiRefNet replay is not bit-identical")
+    if not all(torch.equal(a, b) for a, b in zip(keep, pipe.run_eager(x))):
+        fail("the compiled BiRefNet run's bytes are not the eager run's")
+    walls = _walls(lambda: pipe.run(x), 5)
+    wall = statistics.median(walls)
+    print(f"[birefnet] Pipeline(birefnet-general, k=16) {BATCH}x{H4K}x{W4K}:"
+          f" outputs ok, the eager run's bytes, a second replay "
+          f"bit-identical; compiled {wall * 1e3:.3f} ms/batch (median of "
+          f"{len(walls)}: {', '.join(f'{t * 1e3:.3f}' for t in walls)}), "
+          f"{BATCH * H4K * W4K / 1e6 / wall:.3f} MP/s device-resident "
+          f"({label})")
+
+    with torch.device("meta"):
+        ref = BP.BiRefNetPlain()
+    ref.load_state_dict(module.state_dict(), strict=True, assign=True)
+    with torch.no_grad():
+        want = [ref(xin[i:i + 1]) for i in range(BATCH)]
+        ref.set("fp8")
+        ctrl = [ref(xin[i:i + 1]) for i in range(BATCH)]
+    rel = {"f32": [float((logits[i:i + 1] - w).norm() / w.norm())
+                   for i, w in enumerate(want)],
+           "fp8": [float((c - w).norm() / w.norm())
+                   for c, w in zip(ctrl, want)]}
+    logit_rel = max(rel["f32"])
+    print(f"[birefnet] logit_rel, the replayed network's logits against "
+          f"birefnet_plain (float32, TF32 off) at published widths, frame "
+          f"by frame: {', '.join(f'{v:.5f}' for v in rel['f32'])} (limit "
+          f"{BIREFNET_LOGIT_REL}); the float8 control against the same: "
+          f"{', '.join(f'{v:.5f}' for v in rel['fp8'])} ({label})")
+    if logit_rel > BIREFNET_LOGIT_REL or \
+            min(rel["fp8"]) <= BIREFNET_LOGIT_REL:
+        fail(f"BiRefNet's logits lie {logit_rel} from the reference (limit "
+             f"{BIREFNET_LOGIT_REL}; the control {min(rel['fp8'])})")
+    del pipe, module, out, keep, ref, captured, xin, logits
     torch.cuda.empty_cache()
     return launches
 
@@ -3411,9 +3655,11 @@ def main() -> None:
         "cg_update": check_cg_update(label, dev),
         "sam_attention": check_sam_attention(label, dev),
         "resample": check_resample(label, dev),
+        "deform_conv": check_deform_conv(label, dev),
     }
     launches, frame = run_slice(label)
     launches["sam_attention"] = run_sam_slice(label)["sam_attention"]
+    launches["deform_conv"] = run_birefnet_slice(label)["deform_conv"]
     card_vs_cpu(label)
     launches.update(run_variants(label))
     run_compat(label)

@@ -124,7 +124,7 @@ def profile(device="cuda", b: int = 4, h: int = 2160, w: int = 3840,
                      lambda: RZ.resize_u8(x, (nh, nw), RZ.LANCZOS_PIL))
     (mask, _) = row(f"cnn {model} {nh}x{nw} b{b}",
                     lambda: SEG.saliency_u8(pipe.session.module, small,
-                                            mean, std))
+                                            mean, std, spec.post))
     (alpha0, _) = row(f"mask {nh}x{nw} -> {h}x{w} (Lanczos)",
                       lambda: RZ.resize_u8(mask, (h, w), RZ.LANCZOS_PIL))
 

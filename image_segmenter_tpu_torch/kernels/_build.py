@@ -89,6 +89,11 @@ SIGNATURES = {
     #  columns, span, out u8 (B, dh, C, dw), stream)
     "iseg_resample_u8": [_P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32, _P,
                          _P, _I32, _I32, _I32, _I32, _I32, _P, _P],
+    # (x bf16 (B, H, W, 64), offset f32 (B, H, W, 2 k^2), mask f32 (B, H,
+    #  W, k^2), weight bf16 (256, k, k, 64), bias f32 (256,) or null, relu,
+    #  B, H, W, k, out bf16 (B, H, W) pixels ldo apart, ldo, stream)
+    "iseg_deform_conv": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                         _P, _I64, _P],
 }
 
 _lib = None

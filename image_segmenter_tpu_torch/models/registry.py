@@ -29,6 +29,13 @@ since a host's generator takes tens of seconds for ViT-H's 641 M
 parameters: the same seed gives the same weights on the same kind of
 device, not on every device as for the CNNs. No checkpoint is
 discovered for it.
+
+BiRefNet (`birefnet-general`, rembg's session of the Swin-L general
+model: models/birefnet.py) is a saliency model whose spec adds a sigmoid
+before the min-max (`post="sigmoid"`, rembg's
+BiRefNetSessionGeneral.predict). Like SAM, its weights are seeded on the
+session's device (models/birefnet.seeded_init) and no checkpoint is
+discovered for it; its network stage is a graph of its own on the card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from image_segmenter_tpu_torch.models import birefnet as BRN
 from image_segmenter_tpu_torch.models import onnx_import as OIMP
 from image_segmenter_tpu_torch.models import sam as SAM
 from image_segmenter_tpu_torch.models import u2net as NETS
@@ -53,6 +61,7 @@ from image_segmenter_tpu_torch.utils.backend import resolve_device
 @dataclass(frozen=True)
 class ModelSpec:
     arch: str                 # "u2net" | "u2netp" | "isnet" | "sam_vit_*"
+    #                           | "birefnet_swin_l"
     size: Tuple[int, int]     # network input (H, W)
     mean: Tuple[float, float, float]
     std: Tuple[float, float, float]
@@ -60,6 +69,15 @@ class ModelSpec:
     # "saliency": resize to `size`, divide by the image max, min-max the
     # output; "prompted": SamPredictor's path, one box a frame
     kind: str = "saliency"
+    # a saliency model's map before the min-max: "identity" or "sigmoid"
+    post: str = "identity"
+    # weights seeded by the model's own `seeded_init` with a generator on
+    # the session's device (a host's takes tens of seconds for SAM and
+    # BiRefNet), and no rembg checkpoint discovered
+    seeded_on_device: bool = False
+    # the network stage a compiled graph of its own, its
+    # `compiled.segment` spans naming the model
+    own_graph: bool = False
 
     @property
     def prompted(self) -> bool:
@@ -74,8 +92,9 @@ SPECS = {
     "u2net_cloth_seg": ModelSpec("u2net", (768, 768), (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), out_ch=4),
     "isnet-general-use": ModelSpec("isnet", (1024, 1024), (0.5, 0.5, 0.5), (1.0, 1.0, 1.0)),
     "isnet-anime": ModelSpec("isnet", (1024, 1024), (0.5, 0.5, 0.5), (1.0, 1.0, 1.0)),
-    "sam_vit_h": ModelSpec("sam_vit_h", (1024, 1024), SAM.PIXEL_MEAN, SAM.PIXEL_STD, kind="prompted"),
-    "sam": ModelSpec("sam_vit_b", (1024, 1024), SAM.PIXEL_MEAN, SAM.PIXEL_STD, kind="prompted"),
+    "sam_vit_h": ModelSpec("sam_vit_h", (1024, 1024), SAM.PIXEL_MEAN, SAM.PIXEL_STD, kind="prompted", seeded_on_device=True, own_graph=True),
+    "sam": ModelSpec("sam_vit_b", (1024, 1024), SAM.PIXEL_MEAN, SAM.PIXEL_STD, kind="prompted", seeded_on_device=True, own_graph=True),
+    "birefnet-general": ModelSpec("birefnet_swin_l", (1024, 1024), (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), post="sigmoid", seeded_on_device=True, own_graph=True),
 }
 
 # Flax's variance_scaling truncated normal: a standard normal cut at +-2,
@@ -86,6 +105,8 @@ _TRUNC_STD = 0.87962566103423978
 def _build(spec: ModelSpec, half: bool) -> torch.nn.Module:
     if spec.prompted:
         return SAM.build(spec.arch, half)
+    if spec.arch in BRN.CONFIGS:
+        return BRN.build(spec.arch, half)
     if spec.arch == "u2net":
         return NETS.U2NET(out_ch=spec.out_ch, small=False, half=half)
     if spec.arch == "u2netp":
@@ -141,26 +162,26 @@ class Session:
         self.model_id = model
         self.spec = SPECS[model]
         self.half = half
-        if self.spec.prompted:
+        if self.spec.seeded_on_device:
             # every tensor is seeded here: skip the default init's draws
             with torch.device("meta"):
                 module = _build(self.spec, half)
             module = module.to_empty(device=self.device)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            SAM.seeded_init(module, gen)
+            (SAM if self.spec.prompted else BRN).seeded_init(module, gen)
         else:
             module = _build(self.spec, half)
             _seeded_init(module, seed)
         self.weights_loaded = False
         self.load_report = None
         # an explicit path (tools/verify_checkpoint) overrides discovery
-        if self.spec.prompted and ckpt_path is not None:
+        if self.spec.seeded_on_device and ckpt_path is not None:
             raise ValueError(f"{model}: the checkpoint loader reads rembg "
-                             "`.onnx` files; load a SAM state dict with "
-                             "`Session.load_state_dict`")
+                             "`.onnx` files of the CNNs; load this model's "
+                             "state dict with `Session.load_state_dict`")
         ckpt = ckpt_path if ckpt_path is not None else (
-            None if self.spec.prompted else _checkpoint_path(model))
+            None if self.spec.seeded_on_device else _checkpoint_path(model))
         if ckpt is not None:
             # Strict: a checkpoint that exists but maps only in part would
             # silently give garbage masks; refuse it instead (onnxruntime,
@@ -213,6 +234,8 @@ class Session:
             mask = (torch.argmax(d0, dim=0) != 0).to(torch.float32)
         else:
             d0 = d0[0]
+            if self.spec.post == "sigmoid":
+                d0 = torch.sigmoid(d0)
             mi, ma = d0.min(), d0.max()  # min-max normalise (rembg post)
             mask = (d0 - mi) / torch.clamp_min(ma - mi, 1e-12)
         mask_u8 = torch.clamp(torch.floor(mask * 255.0 + 0.5), 0, 255) \

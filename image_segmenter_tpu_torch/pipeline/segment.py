@@ -35,8 +35,10 @@ batch function is a program (`batch_program`: the network stage, then
 `refine_program`'s matting and quantize) that yields each loop it
 reaches; `run_eager`, `run_from_mask` and the sharded run drive the same
 programs op by op, which is also how the CPU goes.
-A prompted model's network stage ends in a `utils.loops.Cut`, so that it
-is a graph of its own, whose `compiled.segment` spans name the model.
+A prompted model's network stage, and BiRefNet's (`birefnet-general`:
+models/birefnet.py, a saliency model whose map takes a sigmoid before
+the min-max), ends in a `utils.loops.Cut`, so that it is a graph of its
+own, whose `compiled.segment` spans name the model.
 
 `Pipeline(sharding=batch_sharding(mesh))` spreads a batch over a (data,
 space) mesh of device slots (parallel/mesh.py), as the JAX package's
@@ -232,13 +234,16 @@ def _kmeans16_quantize_program(rgb: torch.Tensor, alpha_mask: torch.Tensor,
 
 @torch.no_grad()
 def saliency_u8(module, small: torch.Tensor, mean: torch.Tensor,
-                std: torch.Tensor) -> torch.Tensor:
+                std: torch.Tensor, post: str = "identity") -> torch.Tensor:
     """The network on the resized (B, nh, nw, 3) u8 batch: max-scale,
-    normalise, forward, min-max per image -> (B, nh, nw) u8 mask."""
+    normalise, forward, the spec's `post` ("sigmoid": rembg's BiRefNet
+    session), min-max per image -> (B, nh, nw) u8 mask."""
     x = small.to(torch.float32)
     x = x / torch.clamp_min(x.amax(dim=(1, 2, 3), keepdim=True), 1e-6)
     x = (x - mean) / std
     d0 = module(x.permute(0, 3, 1, 2))[0][:, 0]
+    if post == "sigmoid":
+        d0 = torch.sigmoid(d0)
     mi = d0.amin(dim=(1, 2), keepdim=True)
     ma = d0.amax(dim=(1, 2), keepdim=True)
     m01 = (d0 - mi) / torch.clamp_min(ma - mi, 1e-12)
@@ -273,13 +278,16 @@ class StageFns(NamedTuple):
     """The three pipeline phases as batch functions, eager, and the two
     with a loop also as programs that yield it (pipeline/compiled.py).
     A prompted model's `cnn` takes the boxes too and gives (alpha0 u8
-    BHW, logits, iou); its `matting` starts from that full-size alpha0."""
+    BHW, logits, iou); its `matting` starts from that full-size alpha0.
+    `model`: the model id of a network stage that is a graph of its own
+    (the spec's `own_graph`: SAM, BiRefNet), which ends in a `Cut` so
+    labelled; "" for any other."""
     cnn: Callable        # (module, imgs u8 BHW3) -> mask_small u8 (B,nh,nw)
     matting: Callable    # (imgs, mask_small) -> (sharp bool BHW, alpha u8 BHW)
     quantize: Callable   # (imgs, sharp) -> (rgba u8 BHW4, palettes u8 BK3)
     matting_program: Callable   # matting as a program
     quantize_program: Callable  # quantize as a program
-    model: str = ""             # the model id, for the network's graph
+    model: str = ""             # the label of the network's own graph
 
 
 def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
@@ -296,7 +304,7 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
 
     def cnn_stage(module, imgs):
         small = RZ.resize_u8(imgs, (nh, nw), RZ.LANCZOS_PIL)
-        return saliency_u8(module, small, mean, std)
+        return saliency_u8(module, small, mean, std, spec.post)
 
     def prompted_stage(module, imgs, boxes):
         return SAM.prompted_logits(module, imgs, boxes, mean, std)
@@ -338,7 +346,8 @@ def make_stage_fns(session, k: int, matting_dim: int, cg_iters: int,
 
     return StageFns(prompted_stage if spec.prompted else cnn_stage,
                     matting_stage, quantize_stage, matting_program,
-                    quantize_program, session.model_id)
+                    quantize_program,
+                    session.model_id if spec.own_graph else "")
 
 
 def refine_program(stages: StageFns, imgs: torch.Tensor,
@@ -355,11 +364,12 @@ def batch_program(stages: StageFns, module, imgs: torch.Tensor,
     """The whole batch function as one program: (rgba, alpha, palettes)
     of a (B, H, W, 3) u8 batch on the stages' device; with `boxes` (a
     prompted model's (B, 4) float32) also (logits, iou), the network
-    stage cut into a graph of its own."""
+    stage cut into a graph of its own, as BiRefNet's is."""
     if boxes is None:
         mask, extra = stages.cnn(module, imgs), ()
     else:
         mask, *extra = stages.cnn(module, imgs, boxes)
+    if stages.model:
         yield Cut(stages.model)
     out = yield from refine_program(stages, imgs, mask)
     return out + tuple(extra)

@@ -1361,3 +1361,108 @@ def test_pipeline_launches_the_resample_kernel_once_a_resize(cuda, model):
     names = [e.key for e in prof.key_averages()]
     assert any("resample" in n for n in names)
     assert not any("gemm_f64" in n or "f64f64" in n for n in names)
+
+
+# BiRefNet's deformable convolution: (H, W) of the decoder's scales at
+# 1024 x 1024 and the branches' kernels, batch 4
+DEFORM_SHAPES = [(hw, k) for hw in (32, 64, 128, 256) for k in (1, 3, 7)]
+
+
+def _deform_operands(dev, hw, k, seed):
+    """chip_smoke's operands: offsets N(0, 2^2) with one tap in 16 thrown
+    outside the image, modulators in (0, 2), a (256, k, k, 64) bfloat16
+    weight and a bias."""
+    g = _gen(dev, seed)
+    cl = torch.channels_last
+    x = torch.randn(4, 64, hw, hw, generator=g, device=dev).to(
+        torch.bfloat16, memory_format=cl)
+    off = 2.0 * torch.randn(4, 2 * k * k, hw, hw, generator=g, device=dev)
+    far = torch.rand(off.shape, generator=g, device=dev) < 1 / 16
+    off = torch.where(far, off.sign() * 3.0 * hw, off)
+    mask = 2.0 * torch.rand(4, k * k, hw, hw, generator=g, device=dev)
+    wt = (torch.randn(256, k, k, 64, generator=g, device=dev)
+          / (8.0 * k)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(256, generator=g, device=dev)
+    return (x, off.contiguous(memory_format=cl),
+            mask.contiguous(memory_format=cl), wt, bias)
+
+
+@pytest.mark.parametrize("hw,k", DEFORM_SHAPES)
+def test_deform_conv_kernel_matches_its_plain_version(cuda, hw, k):
+    """The same bfloat16 operand of samples on both sides; the sums in
+    float32 in other orders and each result rounded to bfloat16: within
+    2^-7 of |ref| and 2^-12 of the largest output (chip_smoke's
+    tolerance)."""
+    from image_segmenter_tpu_torch.kernels import deform_conv as KDC
+
+    ops = _deform_operands(cuda, hw, k, seed=hw + k)
+    before = KDC.LAUNCHES
+    got = KDC.deform_conv(*ops, relu=True)
+    assert KDC.LAUNCHES == before + 1
+    ref = KDC.deform_conv_plain(*ops, relu=True, rows=16)
+    r = ref.float().abs()
+    tol = 2 ** -7 * r + 2 ** -12 * float(r.max())
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    # into a channel slice of the branches' concatenation
+    cat = torch.zeros((4, 1280, hw, hw), dtype=torch.bfloat16,
+                      device=cuda).to(memory_format=torch.channels_last)
+    KDC.deform_conv(*ops, relu=True, out=cat[:, 256:512])
+    assert torch.equal(cat[:, 256:512], got)
+    assert not bool(cat[:, :256].any()) and not bool(cat[:, 512:].any())
+
+
+@pytest.mark.parametrize("what", ["x_float32", "weight_float32",
+                                  "x_not_channels_last", "in_channels_32"])
+def test_deform_conv_kernel_refuses_card_inputs_it_does_not_take(cuda, what):
+    """A CUDA input the kernel does not take raises: no plain gather runs
+    on the card, and nothing is launched."""
+    from image_segmenter_tpu_torch.kernels import deform_conv as KDC
+
+    x, off, mask, wt, bias = _deform_operands(cuda, 32, 3, seed=5)
+    if what == "x_float32":
+        x = x.float().contiguous(memory_format=torch.channels_last)
+    elif what == "weight_float32":
+        wt = wt.float()
+    elif what == "x_not_channels_last":
+        x = x.contiguous()
+    else:
+        x, wt = x[:, :32].contiguous(memory_format=torch.channels_last), \
+            wt[..., :32].contiguous()
+    before = KDC.LAUNCHES
+    with pytest.raises(ValueError):
+        KDC.deform_conv(x, off, mask, wt, bias, relu=True)
+    assert KDC.LAUNCHES == before
+
+
+def test_birefnet_float32_network_raises_on_the_card(cuda):
+    """half=False is float32 op for op, which the deformable kernel does
+    not take: on the card its first deformable branch raises."""
+    from image_segmenter_tpu_torch.models import birefnet as BRN
+
+    cfg = BRN.BiRefNetConfig(embed_dim=24, depths=(2, 2, 2, 2),
+                             num_heads=(1, 2, 4, 8))
+    net = BRN.BiRefNet(cfg, half=False).to(cuda)
+    BRN.seeded_init(net, torch.Generator(device=cuda).manual_seed(3))
+    with pytest.raises(ValueError), torch.no_grad():
+        net(torch.randn(1, 3, 160, 160, device=cuda))
+
+
+def test_birefnet_pipeline_runs_on_the_card(cuda):
+    """Pipeline(model="birefnet-general").run once at 4 x 2160 x 3840,
+    compiled: 20 deformable launches and 4 frames a replayed call, the
+    outputs' shapes, a replay bit-identical."""
+    from image_segmenter_tpu_torch.kernels import deform_conv as KDC
+    from image_segmenter_tpu_torch.models import birefnet as BRN
+    from image_segmenter_tpu_torch.pipeline.segment import Pipeline
+
+    rng = np.random.default_rng(26)
+    x = rng.integers(0, 256, (4, 2160, 3840, 3), dtype=np.uint8)
+    pipe = Pipeline(model="birefnet-general", k=16, device="cuda")
+    first = pipe.run(x)
+    n0, f0 = KDC.LAUNCHES, BRN.FRAMES
+    out = pipe.run(x)
+    torch.cuda.synchronize()
+    assert KDC.LAUNCHES - n0 == 20 and BRN.FRAMES - f0 == 4
+    assert out.rgba.shape == (4, 2160, 3840, 4)
+    assert out.palettes.shape == (4, 16, 3)
+    assert all(torch.equal(a, b) for a, b in zip(first, out))
