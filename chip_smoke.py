@@ -8,7 +8,7 @@ Phases, each raising (and exiting non-zero) on failure:
 1. card: CUDA must be present; prints the card name and power limit;
 2. build: compiles the CUDA kernels from kernels/csrc with nvcc (K1-K8,
    the matting CG's update, SAM's encoder attention, the resize and
-   BiRefNet's deformable convolution);
+   BiRefNet's deformable convolution and window attention);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at ragged shapes, with warm timings, its bound
    (the least time the card could take: bytes over the memory rate or
@@ -59,7 +59,12 @@ Phases, each raising (and exiting non-zero) on failure:
    square, batch 4) against its plain version, also into a channel slice
    of the branches' concatenation, timed one launch, back to back and
    from a CUDA graph beside its bound (the products at the bf16 rate, or
-   its operands and output once at the memory's);
+   its operands and output once at the memory's). BiRefNet's window
+   attention (kernels/swin_attention.py, no TPU kernel) at every grid of
+   Swin-L's stages in a call (256 to 16 a side, batch 4, shift 0 and 6)
+   against its plain version (the materialised windows and mask and
+   SDPA, the path it replaced), timed likewise beside its bound, and a
+   call's 48 launches summed;
 4. slice: Pipeline(model="u2netp", k=16).run on a seeded 4 x 2160 x 3840
    photo-like batch, compiled (captured as CUDA graphs at its first call,
    replayed after): output checks, MAIN_PATH_SHA256, the eager stages'
@@ -76,7 +81,8 @@ Phases, each raising (and exiting non-zero) on failure:
    and the CG's update from the stages after the network), output
    checks, the eager run's bytes, a bit-identical second replay, the wall;
    then Pipeline(model="birefnet-general", k=16).run on the same batch:
-   20 deformable launches and 4 frames a replayed call, the same checks,
+   20 deformable and 48 window-attention launches and 4 frames a
+   replayed call, the same checks,
    and that replayed call's network logits against
    benchmark/reference/birefnet_plain.py in float32 (`logit_rel`, with
    the float8 control beside it, which must fail the limit);
@@ -266,6 +272,7 @@ from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 from image_segmenter_tpu_torch.kernels import resample as KRS
 from image_segmenter_tpu_torch.kernels import sam_attention as KSA
+from image_segmenter_tpu_torch.kernels import swin_attention as KSW
 from image_segmenter_tpu_torch.models import onnx_writer as ONNX_WRITER
 from image_segmenter_tpu_torch.models import registry as REG
 from image_segmenter_tpu_torch.models.u2net import U2NET
@@ -340,6 +347,8 @@ KERNELS = {  # name -> (module, launch counter, source, TPU kernel's pallas_call
                  "none (XLA's dot runs the JAX package's resizes)"),
     "deform_conv": (KDC, "LAUNCHES", _CSRC + "deform_conv.cu",
                     "none (the JAX package has no BiRefNet)"),
+    "swin_attention": (KSW, "LAUNCHES", _CSRC + "swin_attention.cu",
+                       "none (the JAX package has no BiRefNet)"),
 }
 MAIN_PATH = ("histogram", "precompute", "matvec", "quantize")
 # the main path on one card: also the CG's update, which a solve split
@@ -1201,6 +1210,136 @@ def check_sam_attention(label: str, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# BiRefNet's Swin-L stages at its 4 x 1024 x 1024 input and at the half-size
+# copy: (grid side, heads, blocks), every second block shifted by 6
+SWIN_STAGES = ((256, 6, 2), (128, 12, 2), (64, 24, 18), (32, 48, 2),
+               (128, 6, 2), (64, 12, 2), (32, 24, 18), (16, 48, 2))
+SWIN_SHIFTS = (0, 6)
+
+
+def swin_attn_operands(dev, b, side, heads, shift, seed):
+    """A block's qkv projection (b, side, side, 3C) bfloat16 and its bias,
+    N(0, 1); a models/birefnet.WindowAttention holding a N(0, 1) table (as
+    seeded_init draws it); its mask for the plain version; the scale."""
+    from image_segmenter_tpu_torch.models import birefnet as BRN
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = heads * KSW.HEAD_DIM
+    qkv = torch.randn(b, side, side, 3 * c, generator=g, device=dev).to(
+        torch.bfloat16)
+    bias = torch.randn(3 * c, generator=g, device=dev).to(torch.bfloat16)
+    attn = BRN.WindowAttention(c, KSW.WINDOW, heads).to(dev)
+    with torch.no_grad():
+        attn.relative_position_bias_table.normal_(generator=g)
+    hp = -(-side // KSW.WINDOW) * KSW.WINDOW
+    mask = attn.mask(hp, hp, shift, torch.bfloat16, dev)
+    return qkv, bias, attn.relative_position_bias_table.detach(), mask, \
+        attn.scale
+
+
+def swin_attn_tolerance(qkv, bias, mask, shift, scale, ref):
+    """How far the kernel may lie from its plain version, elementwise: both
+    round the same bias and sum in float32, but each rounds a row's
+    unnormalised probabilities to bfloat16 (SDPA against its running
+    maximum), so the two within 2^-7 of the row's probability-weighted
+    |v|, and each rounds the output to bfloat16 (one unit in the last
+    place, within 2^-7 of |ref|)."""
+    c = qkv.shape[-1] // 3
+    qa, ba = qkv.clone(), bias.clone()
+    qa[..., 2 * c:] = qa[..., 2 * c:].abs()
+    ba[2 * c:] = ba[2 * c:].abs()
+    wv = KSW.attention_plain(qa, ba, mask, shift, scale)
+    return 2 ** -7 * (wv.float() + ref.float().abs())
+
+
+def swin_attn_bound(b, side, heads) -> dict:
+    """The products on the padded grid (q k^T and P v, 4 d flops a score)
+    at the bf16 rate, or qkv read and the output written once at the
+    memory's."""
+    hp = -(-side // KSW.WINDOW) * KSW.WINDOW
+    c = heads * KSW.HEAD_DIM
+    flops = 4.0 * KSW.HEAD_DIM * b * hp * hp * heads * KSW.WINDOW ** 2
+    nbytes = 2.0 * b * side * side * 4 * c
+    t_ops, t_bytes = flops / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def check_swin_attention(label: str, dev) -> dict:
+    """The kernel against its plain version (pad rows from the bias, roll,
+    partition, SDPA with the materialised mask, reverse, roll back, crop:
+    the parent's path) at every grid of Swin-L's stages in a BiRefNet call,
+    shift 0 and 6, batch 4, timed one launch, back to back and from a CUDA
+    graph beside its bound and beside the plain version; then a call's 48
+    launches summed."""
+    rec = {}
+    for side, heads, _ in SWIN_STAGES:
+        for shift in SWIN_SHIFTS:
+            name = f"{side}x{side}_h{heads}_s{shift}"
+            if name in rec:
+                continue
+            qkv, bias, table, mask, scale = swin_attn_operands(
+                dev, BATCH, side, heads, shift, seed=side + heads + shift)
+            n0 = KSW.LAUNCHES
+            got = KSW.attention(qkv, bias, table, shift, scale)
+            if KSW.LAUNCHES != n0 + 1:
+                fail(f"swin_attention {name}: {KSW.LAUNCHES - n0} launches")
+            ref = KSW.attention_plain(qkv, bias, mask, shift, scale)
+            diff = (got.float() - ref.float()).abs()
+            tol = swin_attn_tolerance(qkv, bias, mask, shift, scale, ref)
+            worst = float((diff / tol).max())
+            err = float(diff.max())
+            if worst > 1.0 or not bool(torch.isfinite(got).all()):
+                fail(f"swin_attention {name}: {err} from the plain version, "
+                     f"{worst:.3f} of the tolerance")
+            del ref, diff, tol
+            fn = lambda: KSW.attention(qkv, bias, table, shift,  # noqa: E731
+                                       scale)
+            ms = median_ms(fn)
+            b2b = median_ms(fn, inner=BACK_TO_BACK)
+            graph = BENCH_K12.graph_ms(fn, BACK_TO_BACK, REPS)
+            plain_ms = median_ms(lambda: KSW.attention_plain(
+                qkv, bias, mask, shift, scale), reps=3)
+            bd = swin_attn_bound(BATCH, side, heads)
+            rec[name] = {"max_abs_err": err, "err_over_tol": worst,
+                         "ms": ms, "ms_back_to_back": b2b,
+                         "ms_graph": graph, "plain_ms": plain_ms,
+                         "tflops_graph": bd["flops"] / graph / 1e9, **bd}
+            print(f"[kernels] swin_attention ({BATCH}, {side}, {side}, "
+                  f"{3 * heads * KSW.HEAD_DIM}) heads {heads} shift {shift}: "
+                  f"{err:.5f} from plain, at most {worst:.3f} of the "
+                  f"tolerance; {ms:.4f} ms one launch, {b2b:.4f} back to "
+                  f"back, {graph:.4f} from a CUDA graph "
+                  f"({bd['flops'] / graph / 1e9:.1f} TFLOP/s, "
+                  f"{bd['bytes'] / graph / 1e6:.1f} GB/s), bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"({bd['bound_ms'] / graph:.3f} of it); plain (the "
+                  f"parent's path: SDPA on the materialised mask) "
+                  f"{plain_ms:.4f} ms ({label})")
+            del qkv, bias, table, mask, got
+    torch.cuda.empty_cache()
+    # a call's 48 launches: each stage's blocks, half of them shifted
+    call = [rec[f"{side}x{side}_h{heads}_s{shift}"]
+            for side, heads, blocks in SWIN_STAGES
+            for shift in SWIN_SHIFTS for _ in range(blocks // 2)]
+    total = {key: sum(r[key] for r in call)
+             for key in ("ms", "ms_back_to_back", "ms_graph", "plain_ms",
+                         "bound_ms", "flops", "bytes")}
+    print(f"[kernels] swin_attention, a BiRefNet call's {len(call)} launches "
+          f"(batch 4 at 1024 x 1024): {total['ms_graph']:.4f} ms from a CUDA "
+          f"graph against {total['bound_ms']:.4f} ms bound "
+          f"({total['bound_ms'] / total['ms_graph']:.3f} of it; "
+          f"{total['bytes'] / 1e9:.3f} GB, {total['flops'] / 1e9:.1f} "
+          f"GFLOP), plain {total['plain_ms']:.3f} ms ({label})")
+    return {"max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+            **{k: total[k] for k in ("ms", "ms_back_to_back", "ms_graph",
+                                     "plain_ms", "bound_ms")},
+            "bound_by": "bytes", "library_ms": total["plain_ms"],
+            "shapes": rec}
+
+
+# ---------------------------------------------------------------------------
 # the resizes of a 4 x 2160 x 3840 batch: (name, source, destination,
 # method, channels); U2-Netp's five, ISNet's Lanczos to and from 1024 x
 # 1024, SAM's BILINEAR_PIL to 576 x 1024
@@ -1684,7 +1823,8 @@ def run_birefnet_slice(label: str) -> dict:
     phase 4's batch, the BiRefNet cell's path. The first call captures the
     program; the launches of one replayed call are counted after
     zero_counts(), as for the CNN: the deformable kernel 20 times (five
-    blocks of four branches), the resize 5. The network's input and
+    blocks of four branches), the window attention 48 (one a Swin block,
+    24 at each of two scales), the resize 5. The network's input and
     logits in that replayed call are the captured graph's own tensors,
     kept by a forward hook on the session's module at capture; they are
     held against reference/birefnet_plain.py in float32 on the card,
@@ -1731,6 +1871,10 @@ def run_birefnet_slice(label: str) -> dict:
     if launches["resample"] != 5:
         fail(f"the BiRefNet path launched the resize kernel "
              f"{launches['resample']} times a call, not 5")
+    if launches["swin_attention"] != 48:
+        fail(f"the BiRefNet path launched the window attention kernel "
+             f"{launches['swin_attention']} times a call, not 48 (one a "
+             f"Swin block, 24 at each of two scales)")
     for name in SLICE_PATH:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the BiRefNet path")
@@ -3656,10 +3800,13 @@ def main() -> None:
         "sam_attention": check_sam_attention(label, dev),
         "resample": check_resample(label, dev),
         "deform_conv": check_deform_conv(label, dev),
+        "swin_attention": check_swin_attention(label, dev),
     }
     launches, frame = run_slice(label)
     launches["sam_attention"] = run_sam_slice(label)["sam_attention"]
-    launches["deform_conv"] = run_birefnet_slice(label)["deform_conv"]
+    bir = run_birefnet_slice(label)
+    launches["deform_conv"] = bir["deform_conv"]
+    launches["swin_attention"] = bir["swin_attention"]
     card_vs_cpu(label)
     launches.update(run_variants(label))
     run_compat(label)

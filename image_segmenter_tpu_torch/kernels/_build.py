@@ -94,6 +94,11 @@ SIGNATURES = {
     #  B, H, W, k, out bf16 (B, H, W) pixels ldo apart, ldo, stream)
     "iseg_deform_conv": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                          _P, _I64, _P],
+    # (qkv bf16 (B, H, W, 3C), its strides over frame, row, token; bias
+    #  bf16 (3C,); table f32 (529, heads), its two strides; B, H, W, C,
+    #  heads, shift, scale, out bf16 (B, H, W, C), stream)
+    "iseg_swin_attention": [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I32,
+                            _I32, _I32, _I32, _I32, _I32, _F32, _P, _P],
 }
 
 _lib = None

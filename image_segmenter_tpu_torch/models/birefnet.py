@@ -54,10 +54,15 @@ which takes bfloat16 and raises on float32. With `half=True`:
   the offsets and modulators after their convolutions (2 sigmoid in
   float32), the sampling positions and bilinear weights, conv_out1's
   products and sums, and the sigmoid gates;
-- window attention through `F.scaled_dot_product_attention` on bfloat16
-  q, k and v with an additive bfloat16 mask: the gathered table bias,
-  plus the shift mask in a shifted block, made once a block, grid shape
-  and type (`WindowAttention.mask`) and kept until `derive` runs again.
+- window attention through kernels/swin_attention: the qkv projection
+  runs on the block's unpadded, unrolled grid, and on a card one kernel
+  a block reads its windows, forms the gathered table bias plus the
+  shift mask in its score tiles (one additive bfloat16 mask, as the
+  official code adds them) and writes each token's output at its own
+  position for `proj`: no pad, roll, partition, mask or reverse in
+  memory. On the CPU its plain version materialises them, with the mask
+  made once a block, grid shape and type (`WindowAttention.mask`) and
+  kept until `derive` runs again.
 The bfloat16 copies (`Linear`, `Conv2d` of models/sam.py: `weight_low`,
 `bias_low`; the deformable branches' `weight_k`, `bias_k`) are made by
 `BiRefNet.derive`: after seeding, after every `load_state_dict`, not at
@@ -77,6 +82,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from image_segmenter_tpu_torch.kernels import deform_conv as KDC
+from image_segmenter_tpu_torch.kernels import swin_attention as KSW
 from image_segmenter_tpu_torch.models.sam import Conv2d, Linear, _lecun
 from image_segmenter_tpu_torch.utils.profiling import replayed_counter, \
     setup_span
@@ -153,21 +159,12 @@ def shift_mask(hp: int, wp: int, ws: int, shift: int,
     return torch.where(diff != 0, -100.0, 0.0)
 
 
-def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
-    """(B, Hp, Wp, C) -> (B nW, ws^2, C), windows in row-major order."""
-    b, h, w, c = x.shape
-    return x.view(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5) \
-        .reshape(-1, ws * ws, c)
-
-
-def window_reverse(x: torch.Tensor, ws: int, b: int, h: int,
-                   w: int) -> torch.Tensor:
-    """(B nW, ws^2, C) -> (B, h, w, C)."""
-    return x.view(b, h // ws, w // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5) \
-        .reshape(b, h, w, -1)
-
-
 class WindowAttention(nn.Module):
+    """Attention within the 12 x 12 windows of a block's (shifted) grid,
+    with the table's bias, then `proj`. On a card the window attention is
+    kernels/swin_attention's kernel, which reads the table itself; on the
+    CPU its plain version takes the mask that `mask` materialises."""
+
     def __init__(self, dim: int, ws: int, num_heads: int):
         super().__init__()
         self.ws, self.num_heads = ws, num_heads
@@ -178,7 +175,8 @@ class WindowAttention(nn.Module):
                              relative_position_index(ws))
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
-        # the additive masks by (grid, shifted, type, device): `mask`
+        # the plain version's additive masks by (grid, shifted, type,
+        # device): `mask`
         self.masks: dict = {}
 
     def bias(self) -> torch.Tensor:
@@ -207,24 +205,20 @@ class WindowAttention(nn.Module):
                 m = self.masks[key] = b.to(dtype).contiguous()
         return m
 
-    def forward(self, x: torch.Tensor, batch: int, hp: int, wp: int,
-                shift: int) -> torch.Tensor:
-        """x (B nW, n, C) windows of `batch` frames' (hp, wp) grids."""
-        bw, n, c = x.shape
-        nh = self.num_heads
-        q, k, v = self.qkv(x).reshape(bw, n, 3, nh, c // nh) \
-            .permute(2, 0, 3, 1, 4).unbind(0)
-        mask = self.mask(hp, wp, shift, x.dtype, x.device)
-        nw = mask.shape[0]
-        if nw == 1:
-            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                               scale=self.scale)
-        else:  # the shift mask differs by window: a frame at a time
-            o = torch.cat([F.scaled_dot_product_attention(
-                q[i * nw:(i + 1) * nw], k[i * nw:(i + 1) * nw],
-                v[i * nw:(i + 1) * nw], attn_mask=mask, scale=self.scale)
-                for i in range(batch)])
-        return self.proj(o.transpose(1, 2).reshape(bw, n, c))
+    def forward(self, y: torch.Tensor, shift: int) -> torch.Tensor:
+        """y (B, H, W, C), the normalised grid in the operands' type ->
+        proj of its window attention, (B, H, W, C)."""
+        h, w = y.shape[1:3]
+        lin = self.qkv
+        bias = lin.bias_low if y.dtype == torch.bfloat16 else lin.bias
+        mask = None
+        if y.device.type == "cpu":
+            ws = self.ws
+            mask = self.mask(-(-h // ws) * ws, -(-w // ws) * ws, shift,
+                             y.dtype, y.device)
+        o = KSW.attention(lin(y), bias, self.relative_position_bias_table,
+                          shift, self.scale, mask=mask)
+        return self.proj(o)
 
 
 class Mlp(nn.Module):
@@ -241,7 +235,7 @@ class SwinTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, ws: int, shift: int,
                  mlp_ratio: float):
         super().__init__()
-        self.ws, self.shift = ws, shift
+        self.shift = shift
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, ws, num_heads)
         self.norm2 = nn.LayerNorm(dim)
@@ -250,19 +244,7 @@ class SwinTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, dt) -> torch.Tensor:
         """x (B, H, W, C) float32, the residual stream; `dt` the type of
         the attention's and the MLP's operands."""
-        b, h, w, _ = x.shape
-        ws, s = self.ws, self.shift
-        hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
-        y = self.norm1(x).to(dt)
-        if hp > h or wp > w:
-            y = F.pad(y, (0, 0, 0, wp - w, 0, hp - h))
-        if s:
-            y = torch.roll(y, (-s, -s), (1, 2))
-        y = self.attn(window_partition(y, ws), b, hp, wp, s)
-        y = window_reverse(y, ws, b, hp, wp)
-        if s:
-            y = torch.roll(y, (s, s), (1, 2))
-        x = x + y[:, :h, :w]
+        x = x + self.attn(self.norm1(x).to(dt), self.shift)
         return x + self.mlp(self.norm2(x).to(dt))
 
 

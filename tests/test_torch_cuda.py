@@ -19,6 +19,7 @@ from image_segmenter_tpu_torch.kernels import quantize as KQ
 from image_segmenter_tpu_torch.kernels import quantize_flat as K7
 from image_segmenter_tpu_torch.kernels import resample as RS
 from image_segmenter_tpu_torch.kernels import sam_attention as SA
+from image_segmenter_tpu_torch.kernels import swin_attention as KSW
 
 pytestmark = pytest.mark.cuda
 
@@ -1435,8 +1436,9 @@ def test_deform_conv_kernel_refuses_card_inputs_it_does_not_take(cuda, what):
 
 
 def test_birefnet_float32_network_raises_on_the_card(cuda):
-    """half=False is float32 op for op, which the deformable kernel does
-    not take: on the card its first deformable branch raises."""
+    """half=False is float32 op for op, which the window attention and
+    deformable kernels do not take: on the card its first Swin block
+    raises."""
     from image_segmenter_tpu_torch.models import birefnet as BRN
 
     cfg = BRN.BiRefNetConfig(embed_dim=24, depths=(2, 2, 2, 2),
@@ -1449,8 +1451,9 @@ def test_birefnet_float32_network_raises_on_the_card(cuda):
 
 def test_birefnet_pipeline_runs_on_the_card(cuda):
     """Pipeline(model="birefnet-general").run once at 4 x 2160 x 3840,
-    compiled: 20 deformable launches and 4 frames a replayed call, the
-    outputs' shapes, a replay bit-identical."""
+    compiled: 20 deformable launches, 48 window-attention launches (one a
+    Swin block, 24 at each of two scales) and 4 frames a replayed call,
+    the outputs' shapes, a replay bit-identical."""
     from image_segmenter_tpu_torch.kernels import deform_conv as KDC
     from image_segmenter_tpu_torch.models import birefnet as BRN
     from image_segmenter_tpu_torch.pipeline.segment import Pipeline
@@ -1459,10 +1462,149 @@ def test_birefnet_pipeline_runs_on_the_card(cuda):
     x = rng.integers(0, 256, (4, 2160, 3840, 3), dtype=np.uint8)
     pipe = Pipeline(model="birefnet-general", k=16, device="cuda")
     first = pipe.run(x)
-    n0, f0 = KDC.LAUNCHES, BRN.FRAMES
+    n0, s0, f0 = KDC.LAUNCHES, KSW.LAUNCHES, BRN.FRAMES
     out = pipe.run(x)
     torch.cuda.synchronize()
     assert KDC.LAUNCHES - n0 == 20 and BRN.FRAMES - f0 == 4
+    assert KSW.LAUNCHES - s0 == 48
     assert out.rgba.shape == (4, 2160, 3840, 4)
     assert out.palettes.shape == (4, 16, 3)
     assert all(torch.equal(a, b) for a, b in zip(first, out))
+
+
+# ---------------------------------------------------------------------------
+# BiRefNet's window attention (kernels/swin_attention, csrc/swin_attention.cu)
+# ---------------------------------------------------------------------------
+
+# (grid side, heads) of Swin-L's stages in a BiRefNet call at 1024 x 1024
+# and at its half-size copy; the sides pad to 264, 132, 72, 36 and 24
+SWIN_GRIDS = [(256, 6), (128, 6), (128, 12), (64, 12), (64, 24), (32, 24),
+              (32, 48), (16, 48)]
+
+
+def _swin_operands(dev, b, h, w, heads, shift, seed):
+    """A block's qkv projection (b, h, w, 3C) bfloat16 and its bias, N(0, 1);
+    a N(0, 1) table (as seeded_init draws it) in a WindowAttention, whose
+    mask the plain version takes; the scale."""
+    from image_segmenter_tpu_torch.models import birefnet as BRN
+
+    g = _gen(dev, seed)
+    c = heads * KSW.HEAD_DIM
+    qkv = torch.randn(b, h, w, 3 * c, generator=g, device=dev).to(
+        torch.bfloat16)
+    bias = torch.randn(3 * c, generator=g, device=dev).to(torch.bfloat16)
+    attn = BRN.WindowAttention(c, KSW.WINDOW, heads).to(dev)
+    with torch.no_grad():
+        attn.relative_position_bias_table.normal_(generator=g)
+    ws = KSW.WINDOW
+    mask = attn.mask(-(-h // ws) * ws, -(-w // ws) * ws, shift,
+                     torch.bfloat16, dev)
+    return qkv, bias, attn.relative_position_bias_table.detach(), mask, \
+        attn.scale
+
+
+def _assert_swin_close(got, qkv, bias, mask, shift, scale):
+    """Within one bfloat16 unit of the plain version: 2^-7 of the row's
+    probability-weighted |v| (each side rounds its unnormalised
+    probabilities to bfloat16, SDPA against its running maximum) and of
+    |ref| (each rounds the output). Returns the plain output."""
+    ref = KSW.attention_plain(qkv, bias, mask, shift, scale)
+    c = qkv.shape[-1] // 3
+    qa, ba = qkv.clone(), bias.clone()
+    qa[..., 2 * c:] = qa[..., 2 * c:].abs()
+    ba[2 * c:] = ba[2 * c:].abs()
+    wv = KSW.attention_plain(qa, ba, mask, shift, scale)
+    tol = 2 ** -7 * (wv.float() + ref.float().abs())
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    return ref
+
+
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("side,heads", SWIN_GRIDS)
+def test_swin_attention_kernel_matches_its_plain_version(cuda, side, heads,
+                                                         shift):
+    """Every grid of Swin-L's stages, batch 4, unshifted and shifted: one
+    launch a call, within one bfloat16 unit of the plain version (the
+    windows, the mask and SDPA materialised); a zeroed table moves the
+    output far outside that."""
+    qkv, bias, table, mask, scale = _swin_operands(
+        cuda, 4, side, side, heads, shift, seed=side + heads + shift)
+    before = KSW.LAUNCHES
+    got = KSW.attention(qkv, bias, table, shift, scale)
+    assert KSW.LAUNCHES == before + 1
+    assert got.shape == (4, side, side, heads * KSW.HEAD_DIM)
+    assert got.dtype == torch.bfloat16
+    _assert_swin_close(got, qkv, bias, mask, shift, scale)
+    moved = KSW.attention(qkv, bias, torch.zeros_like(table), shift, scale)
+    assert float((moved.float() - got.float()).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("h,w", [(13, 25), (3, 5), (24, 12), (1, 1)])
+def test_swin_attention_kernel_at_ragged_grids(cuda, h, w, shift):
+    """Grids that pad on one side or both, one smaller than a window (all
+    four regions of the roll in one window), one that pads on neither
+    and a single token, two frames, a qkv read as a slice of a wider
+    projection; and inside a CUDA graph, whose replay gives the eager
+    bits."""
+    qkv, bias, table, mask, scale = _swin_operands(cuda, 2, h, w, 2, shift,
+                                                   seed=h * w + shift)
+    wide = torch.zeros(2, h, w, qkv.shape[-1] + 8, dtype=qkv.dtype,
+                       device=cuda)
+    wide[..., 8:] = qkv
+    got = KSW.attention(wide[..., 8:], bias, table, shift, scale)
+    _assert_swin_close(got, qkv, bias, mask, shift, scale)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        out = KSW.attention(qkv, bias, table, shift, scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, KSW.attention(qkv, bias, table, shift, scale))
+
+
+def test_swin_attention_refuses_card_inputs_it_does_not_take(cuda):
+    """float32, a head dim of 24, an odd shift, a last stride other than 1:
+    each raises before a launch; there is no fallback."""
+    qkv, bias, table, _, scale = _swin_operands(cuda, 1, 24, 24, 2, 6, seed=1)
+    before = KSW.LAUNCHES
+    with pytest.raises(ValueError, match="bfloat16"):
+        KSW.attention(qkv.float(), bias.float(), table, 6, scale)
+    with pytest.raises(ValueError, match="head dim"):
+        KSW.attention(qkv[..., :144], bias[:144], table, 6, scale)
+    with pytest.raises(ValueError, match="shift"):
+        KSW.attention(qkv, bias, table, 5, scale)
+    t = qkv.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="strides"):
+        KSW.attention(t, bias, table, 6, scale)
+    assert KSW.LAUNCHES == before
+
+
+def test_birefnet_load_state_dict_remakes_the_derived_copies_on_the_card(
+        cuda):
+    """tests/test_torch_birefnet.py's test on the card, with heads of 32
+    (embed 32) for the kernel: after a load the network gives the logits
+    of the state it came from, one window-attention launch a Swin block
+    (16 with these depths at two scales), and the kernel reads the loaded
+    table itself: a change to one table after the load moves the
+    logits."""
+    from image_segmenter_tpu_torch.models import birefnet as BRN
+
+    cfg = BRN.BiRefNetConfig(embed_dim=32, depths=(2, 2, 2, 2),
+                             num_heads=(1, 2, 4, 8))
+    a = BRN.BiRefNet(cfg, half=True).to(cuda)
+    BRN.seeded_init(a, torch.Generator(device=cuda).manual_seed(1))
+    b = BRN.BiRefNet(cfg, half=True).to(cuda)
+    BRN.seeded_init(b, torch.Generator(device=cuda).manual_seed(2))
+    x = torch.randn(1, 3, 160, 160, device=cuda)
+    with torch.no_grad():
+        la, lb = a(x)[0], b(x)[0]
+        b.load_state_dict(a.state_dict())
+        before = KSW.LAUNCHES
+        assert torch.equal(b(x)[0], la)
+        assert KSW.LAUNCHES - before == 16
+        table = b.bb.layers[0].blocks[1].attn.relative_position_bias_table
+        table.normal_(generator=torch.Generator(device=cuda).manual_seed(3))
+        assert not torch.equal(b(x)[0], la)
+    assert not torch.equal(la, lb)
